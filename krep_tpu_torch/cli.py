@@ -3,9 +3,11 @@
 Option parsing, usage text, -f reading and output formatting are shared
 with krep_tpu.cli; only the engine differs. Differences from the original:
 `-v` reports torch and the device instead of the jax backend, and paths
-not ported yet (-r, -E, several patterns) exit 2 with a message.
+not ported yet (-r, -E) exit 2 with a message.
 
     python -m krep_tpu_torch [OPTIONS] PATTERN [FILE]
+    python -m krep_tpu_torch [OPTIONS] -e P1 -e P2 ... [FILE]
+    python -m krep_tpu_torch [OPTIONS] -f PATTERN_FILE [FILE]
 
 The device is $KREP_TORCH_DEVICE, else "cuda".
 Exit codes: 0 match / 1 no match / 2 error (krep.c:1181-1184).

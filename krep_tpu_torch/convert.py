@@ -4,6 +4,9 @@ krep has no weights: its state is the staged text and the pattern
 constants. `staged_from_reference` wraps the JAX package's staged host
 bytes (krep_tpu.ops.dispatch.StagedText._np, a numpy array) as the port's
 StagedText, so both packages scan identical padded bytes.
+`mxu_tables_from_reference` turns the JAX package's Hamming tables
+(krep_tpu.ops.mxu_multi.build_tables, each array as numpy) into the port's
+device tables, the "weights" of the multi-pattern route.
 `phase_words` re-derives the per-phase word constants of the TPU kernel
 (krep_tpu/ops/pallas_swar.py:116-130), for a word-parallel kernel.
 """
@@ -12,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .ops import dispatch
+from .ops import dispatch, mxu
 
 
 def staged_from_reference(np_buffer: np.ndarray, n: int, device=None) -> dispatch.StagedText:
@@ -25,6 +28,15 @@ def staged_from_reference(np_buffer: np.ndarray, n: int, device=None) -> dispatc
     host = dispatch.host_buffer(buf.shape[0], dev)
     host.numpy()[:] = buf
     return dispatch.StagedText(host, n, dev)
+
+
+def mxu_tables_from_reference(tables, device=None) -> mxu.HammingTables:
+    """The port's HammingTables from krep_tpu's build_tables output
+    (G1, nb1, G2, nb2, lens, bitmask, kp_s, qs), arrays as numpy or jax
+    arrays."""
+    G1, nb1, G2, nb2, lens, bitmask, kp_s, qs = tables
+    arrays = [None if a is None else np.asarray(a) for a in (G1, nb1, G2, nb2, lens, bitmask)]
+    return mxu.device_tables((*arrays, int(kp_s), tuple(qs)), dispatch.resolve_device(device))
 
 
 def phase_words(pat: bytes, p: int) -> list[tuple[int, int, int]]:

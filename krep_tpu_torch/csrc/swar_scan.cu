@@ -33,87 +33,17 @@
 // Simple first: no cp.async or TMA, and the SWAR word tricks of the TPU
 // kernel are not used.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "scan_common.cuh"
 
 namespace {
 
-constexpr int kBlockBytes = 65536;                // staged bytes per CUDA block
-constexpr int kThreads = 256;
-constexpr int kSpan = kBlockBytes / kThreads;     // contiguous bytes per thread
-constexpr int kRow = kSpan + 4;                   // padded shared-memory row
-constexpr int kTail = 64;                         // m-1 <= 63 match bytes + the -w after-byte
-constexpr int kSmemBytes = (kThreads + 1) * kRow; // 256 rows + the tail row
-constexpr int kMaxPattern = 64;
-constexpr int kStatWords = 8;
 constexpr int kCombineThreads = 1024;
 
 struct Pattern {
   unsigned char b[kMaxPattern];
 };
-
-// Line-accounting summary of a run of bytes, entered with a closed line.
-//   count   matches;
-//   first   matches that are the first of their line;
-//   trail   the line open at the end has a match (a match after the last
-//           newline; any match at all when there is no newline);
-//   lead    a match before the first newline, or on it (a match that starts
-//           on a '\n' belongs to the line that '\n' ends); any match at all
-//           when there is no newline;
-//   has_nl  the run holds a newline below start_limit.
-struct Summary {
-  int count, first, trail, lead, has_nl;
-};
-
-__device__ __forceinline__ Summary combine(const Summary& x, const Summary& y) {
-  Summary r;
-  r.count = x.count + y.count;
-  r.first = x.first + y.first - (x.trail & y.lead);  // the spanning line counted once
-  r.trail = y.has_nl ? y.trail : (x.trail | y.trail);
-  r.lead = x.has_nl ? x.lead : (x.lead | y.lead);
-  r.has_nl = x.has_nl | y.has_nl;
-  return r;
-}
-
-__device__ __forceinline__ Summary shfl_down(const Summary& s, int off) {
-  Summary r;
-  r.count = __shfl_down_sync(0xffffffffu, s.count, off);
-  r.first = __shfl_down_sync(0xffffffffu, s.first, off);
-  r.trail = __shfl_down_sync(0xffffffffu, s.trail, off);
-  r.lead = __shfl_down_sync(0xffffffffu, s.lead, off);
-  r.has_nl = __shfl_down_sync(0xffffffffu, s.has_nl, off);
-  return r;
-}
-
-// Ordered tree over a warp: lane 0 ends with lanes 0..31 folded in order.
-__device__ __forceinline__ Summary warp_fold(Summary s) {
-  const int lane = threadIdx.x & 31;
-  for (int off = 1; off < 32; off <<= 1) {
-    const Summary o = shfl_down(s, off);
-    if ((lane & (2 * off - 1)) == 0) s = combine(s, o);
-  }
-  return s;
-}
-
-// ASCII lower-fold of 4 bytes at once (lower_table, krep.c:124-134).
-// Carry-less: every add stays inside its byte's low 7 bits.
-__device__ __forceinline__ uint32_t fold4(uint32_t x) {
-  const uint32_t hb = x & 0x80808080u;
-  const uint32_t a = x & 0x7F7F7F7Fu;
-  const uint32_t ge_a = (a + 0x3F3F3F3Fu) & 0x80808080u;  // byte >= 'A'
-  const uint32_t gt_z = (a + 0x25252525u) & 0x80808080u;  // byte >  'Z'
-  const uint32_t upper = ge_a & ~gt_z & ~hb;
-  return x + (upper >> 2);                                // +0x20 per upper byte
-}
-
-// is_word_char (krep.h:298-305): [0-9A-Za-z_].
-__device__ __forceinline__ int is_word(unsigned c) {
-  return (c - '0' < 10u) | ((c | 0x20u) - 'a' < 26u) | (c == '_');
-}
-
-// Shared-memory address of block-local byte offset o (o < kBlockBytes + kTail).
-__device__ __forceinline__ int sidx(int o) { return (o >> 8) * kRow + (o & (kSpan - 1)); }
 
 __global__ void __launch_bounds__(kThreads)
 scan_blocks_kernel(const uint8_t* __restrict__ text, Pattern pat, int m, int icase,

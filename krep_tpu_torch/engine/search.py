@@ -1,13 +1,15 @@
-"""search_string / search_file for the single-literal path.
+"""search_string / search_file for the literal paths (one pattern, or
+several: -e/-f).
 
 Port of krep_tpu/engine/search.py: stage bytes to the device, run the fused
-scan (ops/swar.py — the CUDA kernels on a CUDA device, their plain PyTorch
-versions on the CPU), and resolve the start mask to reference-exact counts
-and positions with the shared host stage (krep_tpu.engine.resolve).
+scans (ops/swar.py, ops/multi.py — the CUDA kernels on a CUDA device, their
+plain PyTorch versions on the CPU), and resolve the start masks to
+reference-exact counts and positions with the shared host stage
+(krep_tpu.engine.resolve).
 
 Everything here takes an explicit `device` (default: $KREP_TORCH_DEVICE,
-else "cuda"). Multi-pattern (Aho-Corasick), regex and multi-GPU sharding
-are not ported yet and raise NotImplementedError.
+else "cuda"). Regex and multi-GPU sharding are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from krep_tpu.engine.select import Selection, select_algorithm
 from krep_tpu.ops import hostscan
 from krep_tpu.params import Algorithm, MatchPolicy, SearchParams
 
-from ..ops import dispatch
+from ..ops import dispatch, multi
 from ..parallel.lines import LineCountCombiner, _is_word_byte
 
 # Single-array scans use int32 offsets; larger inputs stream through the
@@ -43,6 +45,19 @@ EARLY_EXIT_SLAB = 64 << 20  # slab size when -m makes early termination likely
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} not ported to krep_tpu_torch yet")
+
+
+def check_single_device(device: torch.device, n: int, threads: int | None) -> None:
+    """Where krep_tpu would shard over several devices (more than one, a
+    text of 64 KiB or more, -t other than 1), raise: multi-GPU sharding is
+    not ported."""
+    if (
+        device.type == "cuda"
+        and torch.cuda.device_count() > 1
+        and n >= (1 << 16)
+        and threads != 1
+    ):
+        raise _not_ported("multi-GPU sharding")
 
 
 def _device_scan_literal(staged, pattern, params, want_mask):
@@ -226,13 +241,7 @@ def _search_single_literal(
     if m > LONG_PATTERN:
         return _search_single_literal_longpat(params, text, policy, device)
 
-    if (
-        device.type == "cuda"
-        and torch.cuda.device_count() > 1
-        and n >= (1 << 16)
-        and threads != 1
-    ):
-        raise _not_ported("multi-GPU sharding")
+    check_single_device(device, n, threads)
 
     max_count = params.max_count
     if n > SLAB_BYTES:
@@ -274,6 +283,20 @@ def _search_single_literal(
     return SearchResult(len(starts), positions, n)
 
 
+def _search_multi_literal(
+    params: SearchParams, text, device: torch.device, threads: int | None = None,
+) -> SearchResult:
+    """Several patterns (-e/-f): the native host scan below the break-even,
+    whose cost is K passes (so it compares K*n bytes), else the device."""
+    patterns = tuple(p for p in params.patterns if len(p) > 0)
+    n = len(text)
+    if not patterns or n == 0:
+        return SearchResult(0, _EMPTY_POS, n)
+    if hostscan.route_small(n, len(patterns)):
+        return hostscan.search_multi_host(params, text, patterns)
+    return multi.search_multi(params, text, patterns, device, threads)
+
+
 def search_string(
     params: SearchParams, text, threads: int | None = None,
     target: str | None = None, device: str | torch.device | None = None,
@@ -291,7 +314,7 @@ def search_string(
     if sel.algorithm is Algorithm.REGEX:
         raise _not_ported("regex search (-E)")
     if sel.algorithm is Algorithm.AHO_CORASICK:
-        raise _not_ported("multi-pattern search")
+        return _search_multi_literal(params, text, dev, threads)
     return _search_single_literal(params, text, sel, dev, threads)
 
 

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources in `krep_tpu_torch/csrc/` compile with `nvcc` into one shared
-library with a plain C interface, loaded with `ctypes`. The build happens at
-first use (never at import), into `build/krep_tpu_torch/` beside the package
-(or `$KREP_TORCH_BUILD_DIR`), keyed by a hash of the sources and flags, so
-an edited source rebuilds and an unchanged one loads at once.
+The sources in `krep_tpu_torch/csrc/` compile with `nvcc`, one process per
+`.cu` file, all started together, and link into one shared library with a
+plain C interface, loaded with `ctypes`. The build happens at first use
+(never at import), into `build/krep_tpu_torch/` beside the package (or
+`$KREP_TORCH_BUILD_DIR`), keyed by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one loads at once.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, to the build log
 )
 
@@ -55,15 +56,33 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    procs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out.with_name(f"{tag}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for obj, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name}: nvcc exit code {proc.returncode}\n{text}")
+    if failed:
+        for obj, _ in procs:
+            obj.unlink(missing_ok=True)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out.with_name(f"{tag}.so.tmp")
+    objs = [str(obj) for obj, _ in procs]
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
+                          capture_output=True, text=True)
+    for obj in objs:
+        os.unlink(obj)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        raise RuntimeError(f"nvcc link failed with exit code {proc.returncode}:\n{proc.stderr}")
+    out.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, out)
     return out
 
@@ -80,5 +99,13 @@ def library() -> ctypes.CDLL:
         ]
         lib.krep_combine_blocks.restype = i
         lib.krep_combine_blocks.argtypes = [vp, i, vp, vp]
+        lib.krep_scan_blocks_multi.restype = i
+        lib.krep_scan_blocks_multi.argtypes = [vp, i, vp, i, i, i, vp, vp, vp]
+        lib.krep_lines_blocks.restype = i
+        lib.krep_lines_blocks.argtypes = [vp, vp, i, vp, vp]
+        lib.krep_hamming_scan.restype = i
+        lib.krep_hamming_scan.argtypes = [
+            vp, i, vp, vp, vp, i, i, ctypes.c_char_p, i, vp, vp, vp,
+        ]
         _lib = lib
     return _lib

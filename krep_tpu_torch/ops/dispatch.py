@@ -7,7 +7,8 @@ R rows (a multiple of 512, so a whole number of 64 KiB blocks) plus a
 up to 64 bytes into that halo.
 
 There is one route per device: a CUDA tensor goes through the CUDA kernels
-(ops/swar.py), a CPU tensor through their plain PyTorch versions.
+(ops/swar.py, ops/mxu.py), a CPU tensor through their plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -131,6 +132,23 @@ def scan_literal_staged(
         staged.u8, staged.true_len, staged.n_blocks, pattern=pattern,
         case_sensitive=case_sensitive, whole_word=whole_word,
         prev_word=prev_word, start_limit=start_limit, want_mask=want_mask,
+    )
+    return swar.combine_blocks(stats), mask, stats[:, 0]
+
+
+def scan_multi_staged(
+    staged: StagedText, *, patterns, case_sensitive, whole_word, want_mask,
+):
+    """Fused scan of up to 64 patterns (the K-pattern twin of
+    scan_literal_staged). Returns device tensors (totals, mask,
+    group_counts): totals (8,) int32 [matches summed over the patterns,
+    matched lines of their union, trail, lead, has_nl, 0, 0, 0], the u8
+    0/1 union start mask (None unless want_mask), and the per-64 KiB match
+    counts, which are non-zero exactly where the union mask has a set byte
+    (all the readback asks of them)."""
+    stats, mask = swar.scan_blocks_multi(
+        staged.u8, staged.true_len, staged.n_blocks, patterns=tuple(patterns),
+        case_sensitive=case_sensitive, whole_word=whole_word, want_mask=want_mask,
     )
     return swar.combine_blocks(stats), mask, stats[:, 0]
 

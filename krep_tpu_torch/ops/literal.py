@@ -4,8 +4,10 @@ Port of krep_tpu/ops/literal.py. `all_starts_mask` is the dense all-starts
 match mask (M[i] iff text[i:i+m] == pattern, after the optional ASCII fold,
 optionally filtered by whole-word boundaries); the line functions count
 distinct matched lines the way the reference's -c dedup does
-(krep.c:1331-1351). `block_stats` is the plain twin of the CUDA scan kernel
-(csrc/swar_scan.cu): the same per-64 KiB summaries.
+(krep.c:1331-1351). `block_stats`, `block_stats_multi` and
+`lines_block_stats` are the plain twins of the CUDA scan kernels
+(csrc/swar_scan.cu, multi_scan.cu, lines_scan.cu): the same per-64 KiB
+summaries.
 
 These run wherever their tensors live. The CPU path uses them, and on the
 card they are the reference the CUDA kernels are held against. Offsets
@@ -218,35 +220,12 @@ def scan_shard(
     return count, fcount, trail, lead, has_nl, out_mask
 
 
-def block_stats(
-    text: torch.Tensor,
-    true_len: int,
-    n_blocks: int,
-    *,
-    pattern: bytes,
-    case_sensitive: bool = True,
-    whole_word: bool = False,
-    prev_word: int = 0,
-    start_limit: int | None = None,
-    want_mask: bool = False,
-):
-    """Plain twin of the CUDA scan kernel: per-64 KiB-block summaries
-    (n_blocks, 8) int32 of [count, first, trail, lead, has_nl, 0, 0, 0],
-    each computed as if its block began on a closed line (see
-    parallel/lines.py), and the u8 start mask over the n_blocks * 64 KiB
-    body (None unless want_mask). `text` must reach past the body by the
-    pattern length, as staged text does through its zero halo."""
-    body = n_blocks * BLOCK_BYTES
-    dev = text.device
-    mask = all_starts_mask(
-        text, pattern,
-        case_sensitive=case_sensitive, whole_word=whole_word,
-        true_len=true_len, prev_word=prev_word, start_limit=start_limit,
-    )[:body]
-    nl = text[:body] == NEWLINE
-    if start_limit is not None:
-        nl[max(0, start_limit):] = False
-
+def _block_summaries(mask: torch.Tensor, nl: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """(n_blocks, 8) int32 [set mask bytes, first, trail, lead, has_nl,
+    0, 0, 0] of a bool start mask and newline flags over n_blocks * 64 KiB,
+    each block summarised as if it began on a closed line (see
+    parallel/lines.py)."""
+    dev = mask.device
     stats = torch.zeros((n_blocks, STAT_WORDS), dtype=torch.int32, device=dev)
     stats[:, 0] = mask.view(n_blocks, BLOCK_BYTES).sum(1, dtype=torch.int32)
     stats[:, 4] = nl.view(n_blocks, BLOCK_BYTES).any(1).to(torch.int32)
@@ -268,4 +247,75 @@ def block_stats(
         stats[b0, 3] = (lid[new_blk] == nl_before[b0]).to(torch.int32)
         b1 = blk[last_of_blk]
         stats[b1, 2] = (lid[last_of_blk] == nl_through[b1]).to(torch.int32)
+    return stats
+
+
+def block_stats(
+    text: torch.Tensor,
+    true_len: int,
+    n_blocks: int,
+    *,
+    pattern: bytes,
+    case_sensitive: bool = True,
+    whole_word: bool = False,
+    prev_word: int = 0,
+    start_limit: int | None = None,
+    want_mask: bool = False,
+):
+    """Plain twin of the CUDA scan kernel: per-64 KiB-block summaries
+    (n_blocks, 8) int32 of [count, first, trail, lead, has_nl, 0, 0, 0],
+    each computed as if its block began on a closed line (see
+    parallel/lines.py), and the u8 start mask over the n_blocks * 64 KiB
+    body (None unless want_mask). `text` must reach past the body by the
+    pattern length, as staged text does through its zero halo."""
+    body = n_blocks * BLOCK_BYTES
+    mask = all_starts_mask(
+        text, pattern,
+        case_sensitive=case_sensitive, whole_word=whole_word,
+        true_len=true_len, prev_word=prev_word, start_limit=start_limit,
+    )[:body]
+    nl = text[:body] == NEWLINE
+    if start_limit is not None:
+        nl[max(0, start_limit):] = False
+    stats = _block_summaries(mask, nl, n_blocks)
     return stats, (mask.to(torch.uint8) if want_mask else None)
+
+
+def block_stats_multi(
+    text: torch.Tensor,
+    true_len: int,
+    n_blocks: int,
+    *,
+    patterns: tuple[bytes, ...],
+    case_sensitive: bool = True,
+    whole_word: bool = False,
+    want_mask: bool = False,
+):
+    """Plain twin of the K-pattern CUDA scan kernel: the OR and the sum of
+    the patterns' all-starts masks cut into block summaries. Returns
+    (n_blocks, 8) int32 [matches, first, trail, lead, has_nl, 0, 0, 0] —
+    matches summed over the patterns, the line fields of the union — and
+    the u8 union start mask (None unless want_mask)."""
+    body = n_blocks * BLOCK_BYTES
+    union = torch.zeros(body, dtype=torch.bool, device=text.device)
+    counts = torch.zeros(n_blocks, dtype=torch.int32, device=text.device)
+    for p in patterns:
+        m = all_starts_mask(
+            text, p, case_sensitive=case_sensitive, whole_word=whole_word,
+            true_len=true_len,
+        )[:body]
+        union |= m
+        counts += m.view(n_blocks, BLOCK_BYTES).sum(1, dtype=torch.int32)
+    stats = _block_summaries(union, text[:body] == NEWLINE, n_blocks)
+    stats[:, 0] = counts
+    return stats, (union.to(torch.uint8) if want_mask else None)
+
+
+def lines_block_stats(text: torch.Tensor, mask: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """Plain twin of the CUDA lines kernel: block summaries (n_blocks, 8)
+    int32 [set mask bytes, first, trail, lead, has_nl, 0, 0, 0] of a u8
+    0/1 start mask over the text's first n_blocks * 64 KiB. A flag on a
+    '\n' byte counts the line that '\n' ends, which is pallas_swar's
+    `nl_start_matches` rule whichever way that switch is set."""
+    body = n_blocks * BLOCK_BYTES
+    return _block_summaries(mask[:body] != 0, text[:body] == NEWLINE, n_blocks)

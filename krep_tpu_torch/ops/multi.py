@@ -1,0 +1,224 @@
+"""Multi-pattern literal search (the Aho-Corasick capability).
+
+Port of krep_tpu/ops/multi.py on its device route. As there, K patterns
+are not walked as a DFA but scanned in fused passes, and the count is the
+sum of the per-pattern all-starts counts (the reference's own tests assert
+AC count == sum of per-pattern counts, test_multiple_patterns.c:345-471).
+Two kernels carry the passes:
+  * up to 64 patterns per pass: the fused K-pattern scan
+    (dispatch.scan_multi_staged, csrc/multi_scan.cu);
+  * from MXU_MIN_K = 32 patterns of 1..29 NUL-free bytes up: the Hamming
+    products on the int8 tensor cores (mxu.scan_count,
+    csrc/hamming_scan.cu), up to 256 patterns per pass; their -c chains the
+    union mask into the lines kernel (swar.lines_blocks).
+Positions come from the union start mask, attributed to patterns on the
+host and truncated in AC emission order by krep_tpu.engine.resolve. The
+caller's pattern tuple (not the Hamming tables' shorts-first order) is the
+one attributed.
+
+There is one route per device (CUDA kernels on a CUDA device, their plain
+versions on the CPU); multi-GPU sharding is not ported and raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from krep_tpu.engine import resolve
+from krep_tpu.engine.search import _EMPTY_POS, SearchResult
+from krep_tpu.params import SearchParams
+
+from . import dispatch, mxu, swar
+
+FUSED_MAX = swar.MAX_PATTERNS  # patterns per fused pass
+
+
+def _mxu_eligible(patterns) -> bool:
+    """The Hamming route's guard (multi.py:80): K >= MXU_MIN_K and every
+    member 1..MAX_LEN_LONG bytes and NUL-free (a NUL would match the zero
+    padding past true_len, which the non-strict products rely on)."""
+    return len(patterns) >= mxu.MXU_MIN_K and all(
+        0 < len(p) <= mxu.MAX_LEN_LONG and 0 not in p for p in patterns
+    )
+
+
+def _groups(patterns, size: int):
+    return [patterns[i : i + size] for i in range(0, len(patterns), size)]
+
+
+def cap(count: int, max_count: int | None) -> int:
+    return min(count, max_count) if max_count is not None else count
+
+
+def fused_count_device(staged, patterns, case_sensitive, whole_word, max_count=None) -> int:
+    """Total ALL-overlap count of K patterns: Hamming passes when the set
+    qualifies, else fused passes of FUSED_MAX. Multi-pass runs stop once
+    max_count is reached (krep.c:2950-2962's budget capping)."""
+    if _mxu_eligible(patterns):
+        groups = _groups(patterns, mxu.MXU_MAX_PASS)
+
+        def scan(g):
+            return mxu.scan_count(
+                staged, patterns=g, case_sensitive=case_sensitive, whole_word=whole_word
+            )[0]
+    else:
+        groups = _groups(patterns, FUSED_MAX)
+
+        def scan(g):
+            return dispatch.scan_multi_staged(
+                staged, patterns=g, case_sensitive=case_sensitive,
+                whole_word=whole_word, want_mask=False,
+            )[0][0]
+    total = 0
+    for i, g in enumerate(groups):
+        total = total + scan(g).to(torch.int64)
+        if max_count is not None and i + 1 < len(groups) and int(total) >= max_count:
+            break
+    return int(total)
+
+
+def fused_union_mask_device(staged, patterns, case_sensitive, whole_word):
+    """Union start mask (u8 0/1 over the staged body) of K patterns and its
+    per-64 KiB group counts (non-zero exactly where the mask has a set
+    byte), routed as fused_count_device routes."""
+    if _mxu_eligible(patterns):
+        parts = [
+            mxu.scan_count(
+                staged, patterns=g, case_sensitive=case_sensitive,
+                whole_word=whole_word, want_mask=True,
+            )[1:]
+            for g in _groups(patterns, mxu.MXU_MAX_PASS)
+        ]
+    else:
+        parts = [
+            dispatch.scan_multi_staged(
+                staged, patterns=g, case_sensitive=case_sensitive,
+                whole_word=whole_word, want_mask=True,
+            )[1:]
+            for g in _groups(patterns, FUSED_MAX)
+        ]
+    mask, group_counts = parts[0]
+    for m, c in parts[1:]:
+        mask |= m
+        group_counts = group_counts + c
+    return mask, group_counts
+
+
+def fused_lines_device(staged, patterns, case_sensitive, whole_word) -> int:
+    """Matched-line count of the K-pattern union on the device: the union
+    mask chained into the lines kernel and the ordered combine, so only
+    scalars leave the card (the reference's AC counts lines in-stream,
+    aho_corasick.c:390-403)."""
+    mask, _ = fused_union_mask_device(staged, patterns, case_sensitive, whole_word)
+    stats = swar.lines_blocks(staged.u8, mask, staged.n_blocks)
+    return int(swar.combine_blocks(stats)[1])
+
+
+def resolve_positions(params: SearchParams, data: np.ndarray, anchors, patterns) -> SearchResult:
+    """Attribute union start anchors to the patterns (with multiplicity,
+    whole-word checked) and truncate in AC emission order."""
+    starts, ends = resolve.attribute_patterns(
+        data, anchors, patterns,
+        case_sensitive=params.case_sensitive, whole_word=params.whole_word,
+        anchor="start",
+    )
+    positions = resolve.ac_order_truncate(
+        starts, ends, params.max_count, final_sort=params.sorted_positions
+    )
+    if params.count_mode:
+        return SearchResult(len(positions), _EMPTY_POS, len(data))
+    return SearchResult(len(positions), positions, len(data))
+
+
+def _search_multi_swar(params: SearchParams, text, patterns, device) -> SearchResult:
+    """K <= FUSED_MAX patterns, all of them <= 64 bytes, one staged array."""
+    n = len(text)
+    staged = dispatch.stage(text, device)
+    mc = params.max_count
+
+    if params.count_lines_mode:
+        if _mxu_eligible(patterns):
+            lines = fused_lines_device(
+                staged, patterns, params.case_sensitive, params.whole_word
+            )
+        else:
+            totals, _, _ = dispatch.scan_multi_staged(
+                staged, patterns=patterns, case_sensitive=params.case_sensitive,
+                whole_word=params.whole_word, want_mask=False,
+            )
+            lines = int(totals[1])
+        return SearchResult(cap(lines, mc), _EMPTY_POS, n)
+
+    if params.count_matches_mode:
+        total = fused_count_device(staged, patterns, params.case_sensitive, params.whole_word)
+        return SearchResult(cap(total, mc), _EMPTY_POS, n)
+
+    mask, group_counts = fused_union_mask_device(
+        staged, patterns, params.case_sensitive, params.whole_word
+    )
+    anchors = dispatch.starts_from_device_mask(mask, n, group_counts)
+    return resolve_positions(params, dispatch.as_u8(text), anchors, patterns)
+
+
+def _search_multi_mixed(params: SearchParams, text, patterns, device) -> SearchResult:
+    """Sets with members over 64 bytes, or texts over SLAB_BYTES: in slabs,
+    short members scan fused and long members scan their 64-byte prefix as
+    a filter; the union of candidate starts is attributed and verified on
+    the host (exact, any K). A slab edge looks like a text edge to the -w
+    test, which only admits candidates; the host check is exact."""
+    from ..engine import search as engine
+
+    data = dispatch.as_u8(text)
+    n = data.shape[0]
+    long_pattern = engine.LONG_PATTERN
+    shorts = tuple(p for p in patterns if len(p) <= long_pattern)
+    longs = tuple(p for p in patterns if len(p) > long_pattern)
+    pieces = []
+    pos = 0
+    while pos < n:
+        owned = min(engine.SLAB_BYTES, n - pos)
+        slab = data[pos : min(pos + owned + long_pattern, n)]
+        staged = dispatch.stage(slab, device)
+        for g in _groups(shorts, FUSED_MAX):
+            _, mask, group_counts = dispatch.scan_multi_staged(
+                staged, patterns=g, case_sensitive=params.case_sensitive,
+                whole_word=params.whole_word, want_mask=True,
+            )
+            starts = dispatch.starts_from_device_mask(mask, len(slab), group_counts)
+            pieces.append(starts[starts < owned] + pos)
+        for p in longs:
+            _, mask, group_counts = dispatch.scan_literal_staged(
+                staged, pattern=p[:long_pattern], case_sensitive=params.case_sensitive,
+                whole_word=False, want_mask=True,
+            )
+            starts = dispatch.starts_from_device_mask(mask, len(slab), group_counts)
+            pieces.append(starts[starts < owned] + pos)
+        pos += owned
+
+    anchors = np.unique(np.concatenate(pieces)) if pieces else np.zeros(0, np.int64)
+    if params.count_lines_mode:
+        starts, _ = resolve.attribute_patterns(
+            data, anchors, patterns, case_sensitive=params.case_sensitive,
+            whole_word=params.whole_word, anchor="start",
+        )
+        nl = resolve.newline_positions_host(data)
+        lines = len(np.unique(np.searchsorted(nl, starts, side="left")))
+        return SearchResult(cap(lines, params.max_count), _EMPTY_POS, n)
+    return resolve_positions(params, data, anchors, patterns)
+
+
+def search_multi(params: SearchParams, text, patterns, device, threads: int | None = None) -> SearchResult:
+    """Device search for the non-empty `patterns` of `params` over a
+    non-empty text, routed as krep_tpu's search_multi routes on its SWAR
+    backend: the mixed slab route, the K > FUSED_MAX grouped route
+    (ops/dfa.py), or one fused pass."""
+    from ..engine import search as engine
+    from . import dfa
+
+    engine.check_single_device(device, len(text), threads)
+    if any(len(p) > engine.LONG_PATTERN for p in patterns) or len(text) > engine.SLAB_BYTES:
+        return _search_multi_mixed(params, text, patterns, device)
+    if len(patterns) > FUSED_MAX:
+        return dfa.search_dfa(params, text, patterns, device)
+    return _search_multi_swar(params, text, patterns, device)

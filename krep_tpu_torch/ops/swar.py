@@ -1,23 +1,30 @@
-"""Wrappers of the hand-written CUDA literal scan (csrc/swar_scan.cu).
+"""Wrappers of the hand-written CUDA literal scans (csrc/*_scan.cu).
 
-Port of the K=1 modes of krep_tpu/ops/pallas_swar.py (`scan_literal`,
-`scan_shard`). Two kernels carry them:
+Port of krep_tpu/ops/pallas_swar.py (`scan_literal`, `scan_shard`,
+`scan_multi`, `lines_from_mask`). Four kernels carry them:
 
-  scan_blocks     one CUDA block per 64 KiB of staged text: the match test,
-                  the 0/1 start mask, and one line-accounting summary per
-                  block (the TPU kernel's sequential carries become these
-                  summaries);
-  combine_blocks  one block that folds the summaries in text order into the
-                  match count, the matched-line count and the shard stats.
+  scan_blocks        one CUDA block per 64 KiB of staged text: the match
+                     test of one pattern, the 0/1 start mask, and one
+                     line-accounting summary per block (the TPU kernel's
+                     sequential carries become these summaries);
+  scan_blocks_multi  the same for up to 64 patterns in one pass: the summed
+                     match count, and the union mask and line state;
+  lines_blocks       the same summaries from a precomputed 0/1 start mask;
+  combine_blocks     one block that folds the summaries in text order into
+                     the match count, the matched-line count and the shard
+                     stats.
 
 On a CUDA tensor each wrapper launches its kernel or raises. On a CPU
 tensor it runs the kernel's plain PyTorch version (literal.block_stats,
-lines.combine_block_stats). `LAUNCHES` and `COMBINE_LAUNCHES` count kernel
-launches, so a run can show that it went through the kernels.
+literal.block_stats_multi, literal.lines_block_stats,
+lines.combine_block_stats). `LAUNCHES`, `MULTI_LAUNCHES`, `LINES_LAUNCHES`
+and `COMBINE_LAUNCHES` count kernel launches, so a run can show that it
+went through the kernels.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..parallel import lines
@@ -25,10 +32,13 @@ from . import literal
 from .literal import BLOCK_BYTES, STAT_WORDS
 
 MAX_PATTERN = 64        # longer patterns go through the prefix filter (engine/search.py)
+MAX_PATTERNS = 64       # patterns per scan_blocks_multi pass
 TAIL_BYTES = 64         # bytes the kernel reads past the body: m - 1 plus the -w after-byte
 NO_LIMIT = 0x7FFFFFF0   # start_limit sentinel: no owned-region restriction
 
 LAUNCHES = 0
+MULTI_LAUNCHES = 0
+LINES_LAUNCHES = 0
 COMBINE_LAUNCHES = 0
 
 
@@ -43,6 +53,15 @@ def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type
+
+
+def _check_text(text: torch.Tensor, n_blocks: int, tail: int) -> int:
+    body = n_blocks * BLOCK_BYTES
+    if n_blocks < 1 or text.dim() != 1 or text.shape[0] < body + tail:
+        raise ValueError("text must be flat and cover n_blocks * 64 KiB plus the tail")
+    if body > (1 << 31):
+        raise ValueError("staged arrays are limited to 2 GiB of body")
+    return body
 
 
 def scan_blocks(
@@ -65,11 +84,9 @@ def scan_blocks(
     m = len(pattern)
     if not 1 <= m <= MAX_PATTERN:
         raise ValueError(f"pattern length {m} outside 1..{MAX_PATTERN}")
-    body = n_blocks * BLOCK_BYTES
-    if n_blocks < 1 or text.dim() != 1 or text.shape[0] < body + TAIL_BYTES:
-        raise ValueError("text must be flat and cover n_blocks * 64 KiB plus the tail")
-    if body > (1 << 31) or true_len > body:
-        raise ValueError("staged arrays are limited to 2 GiB of body")
+    body = _check_text(text, n_blocks, TAIL_BYTES)
+    if true_len > body:
+        raise ValueError("true_len lies past the staged body")
     if _device_kind(text) == "cpu":
         return literal.block_stats(
             text, true_len, n_blocks, pattern=pattern,
@@ -96,6 +113,108 @@ def scan_blocks(
     global LAUNCHES
     LAUNCHES += 1
     return stats, mask
+
+
+# Byte layout of the kernel's PatternSet (csrc/multi_scan.cu).
+_SET_BYTES, _SET_LEN, _SET_MAP, _SET_OFF, _SET_BUCKET, PATTERN_SET_BYTES = (
+    0, 4096, 4352, 4384, 4648, 4712,
+)
+
+
+def _pattern_set(patterns: tuple[bytes, ...]) -> np.ndarray:
+    """The kernel's pattern set: each pattern's bytes and length, a bitmap
+    of first bytes, and the pattern indices grouped by first byte
+    (bucket of byte c = bucket[off[c]:off[c + 1]])."""
+    buf = np.zeros(PATTERN_SET_BYTES, np.uint8)
+    pb = buf[_SET_BYTES:_SET_LEN].reshape(MAX_PATTERNS, MAX_PATTERN)
+    for k, p in enumerate(patterns):
+        pb[k, : len(p)] = np.frombuffer(p, np.uint8)
+    buf[_SET_LEN:_SET_MAP].view(np.int32)[: len(patterns)] = [len(p) for p in patterns]
+    first = np.array([p[0] for p in patterns], np.int64)
+    seen = np.zeros(256, bool)
+    seen[first] = True
+    buf[_SET_MAP:_SET_OFF] = np.packbits(seen, bitorder="little")
+    buf[_SET_OFF : _SET_OFF + 257] = np.concatenate(
+        [[0], np.cumsum(np.bincount(first, minlength=256))]
+    )
+    buf[_SET_BUCKET : _SET_BUCKET + len(patterns)] = np.argsort(first, kind="stable")
+    return buf
+
+
+def scan_blocks_multi(
+    text: torch.Tensor,
+    true_len: int,
+    n_blocks: int,
+    *,
+    patterns: tuple[bytes, ...],
+    case_sensitive: bool = True,
+    whole_word: bool = False,
+    want_mask: bool = False,
+):
+    """Per-64 KiB-block summaries (n_blocks, 8) int32 of
+    [matches, first, trail, lead, has_nl, 0, 0, 0] of up to 64 patterns in
+    one pass — matches summed over the patterns (the Aho-Corasick count),
+    the line fields over the union of their starts — and the u8 0/1 union
+    start mask (None unless want_mask). `text` as for scan_blocks."""
+    if not 1 <= len(patterns) <= MAX_PATTERNS:
+        raise ValueError(f"{len(patterns)} patterns outside 1..{MAX_PATTERNS}")
+    if any(not 1 <= len(p) <= MAX_PATTERN for p in patterns):
+        raise ValueError(f"pattern length outside 1..{MAX_PATTERN}")
+    body = _check_text(text, n_blocks, TAIL_BYTES)
+    if true_len > body:
+        raise ValueError("true_len lies past the staged body")
+    if _device_kind(text) == "cpu":
+        return literal.block_stats_multi(
+            text, true_len, n_blocks, patterns=patterns,
+            case_sensitive=case_sensitive, whole_word=whole_word, want_mask=want_mask,
+        )
+
+    from . import _build
+
+    _check_cuda(text, torch.uint8, "text")
+    pats = patterns if case_sensitive else tuple(literal.fold_bytes_host(p) for p in patterns)
+    pset = torch.from_numpy(_pattern_set(pats)).to(text.device)
+    stats = torch.empty((n_blocks, STAT_WORDS), dtype=torch.int32, device=text.device)
+    mask = torch.empty(body, dtype=torch.uint8, device=text.device) if want_mask else None
+    stream = torch.cuda.current_stream(text.device).cuda_stream
+    with torch.cuda.device(text.device):
+        err = _build.library().krep_scan_blocks_multi(
+            text.data_ptr(), n_blocks, pset.data_ptr(), int(not case_sensitive),
+            int(whole_word), int(true_len),
+            None if mask is None else mask.data_ptr(), stats.data_ptr(), stream,
+        )
+    if err:
+        raise RuntimeError(f"scan_blocks_multi kernel launch failed: CUDA error {err}")
+    global MULTI_LAUNCHES
+    MULTI_LAUNCHES += 1
+    return stats, mask
+
+
+def lines_blocks(text: torch.Tensor, mask: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """Per-64 KiB-block summaries (n_blocks, 8) int32 of
+    [set mask bytes, first, trail, lead, has_nl, 0, 0, 0] of a u8 0/1 start
+    mask over the first n_blocks * 64 KiB bytes of `text`."""
+    body = _check_text(text, n_blocks, 0)
+    if mask.dim() != 1 or mask.shape[0] < body or mask.device != text.device:
+        raise ValueError("mask must be flat, on the text's device, and cover the body")
+    if _device_kind(text) == "cpu":
+        return literal.lines_block_stats(text, mask, n_blocks)
+
+    from . import _build
+
+    _check_cuda(text, torch.uint8, "text")
+    _check_cuda(mask, torch.uint8, "mask")
+    stats = torch.empty((n_blocks, STAT_WORDS), dtype=torch.int32, device=text.device)
+    stream = torch.cuda.current_stream(text.device).cuda_stream
+    with torch.cuda.device(text.device):
+        err = _build.library().krep_lines_blocks(
+            text.data_ptr(), mask.data_ptr(), n_blocks, stats.data_ptr(), stream,
+        )
+    if err:
+        raise RuntimeError(f"lines_blocks kernel launch failed: CUDA error {err}")
+    global LINES_LAUNCHES
+    LINES_LAUNCHES += 1
+    return stats
 
 
 def combine_blocks(stats: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,477 @@
+"""krep_tpu_torch's multi-pattern path against the JAX package, on the CPU.
+
+The port's plain versions of its three multi-pattern kernels
+(literal.block_stats_multi, literal.lines_block_stats,
+mxu.hamming_scan_plain) are held to the Pallas kernels they replace in
+interpret mode (pallas_swar.scan_multi, pallas_swar.lines_from_mask,
+mxu_multi.scan_count), on the same staged bytes; the port's
+search_string and CLI to krep_tpu's, on every multi-pattern route. Inputs
+are made from fixed seeds; every comparison is exact equality.
+
+The Pallas kernels' -w drops matches after "_^" (ROADMAP queue 3), so the
+texts held to them hold no "^", and "_^" cases are held to tests/naive.py.
+"""
+
+import io
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import krep_tpu
+import naive
+from krep_tpu import cli as jcli
+from krep_tpu.ops import dispatch as jdispatch
+from krep_tpu.ops import mxu_multi, pallas_swar
+from krep_tpu_torch import SearchParams, cli, convert, search_string
+from krep_tpu_torch.engine import search as search_mod
+from krep_tpu_torch.ops import dispatch, literal, mxu, multi, swar
+from krep_tpu_torch.parallel import lines
+
+CPU = torch.device("cpu")
+REF_HOST = str(1 << 40)  # KREP_TPU_HOST_BREAKEVEN that sends krep_tpu to its native host route
+
+ALPHABET = b"abcdeAB_9 \n\nthe quick"
+WORDS = sorted(set(naive.gen_english(1, 4000).split()))  # 29 distinct words, 1-10 bytes
+
+
+def stage_both(text: bytes):
+    jst = jdispatch.stage(text)
+    return jst, convert.staged_from_reference(jst._np, len(text), CPU)
+
+
+def union_starts(text: bytes, patterns, cs=True, ww=False) -> list[int]:
+    return sorted({s for p in patterns for s in naive.all_starts(text, p, cs, ww)})
+
+
+def mixed_set(k: int, seed: int) -> tuple[bytes, ...]:
+    """k distinct members of 4-20 bytes cut from the corpus vocabulary, as
+    bench.py builds config 3c's set (members over 13 bytes take the second
+    window)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < k:
+        ws = [WORDS[int(i)] for i in rng.integers(0, len(WORDS), int(rng.integers(1, 4)))]
+        p = b" ".join(ws)[: int(rng.integers(4, 21))]
+        if len(p) >= 4 and p not in out:
+            out.append(p)
+    return tuple(out)
+
+
+def variants(k: int) -> tuple[bytes, ...]:
+    """k distinct members: the vocabulary, then numbered 8-byte variants
+    (bench.py's 64-literal recipe)."""
+    out = []
+    i = 0
+    while len(out) < k:
+        w = WORDS[i % len(WORDS)]
+        r = i // len(WORDS)
+        p = (w[:5] + str(r).encode() if r else w)[:8]
+        if p not in out:
+            out.append(p)
+        i += 1
+    return tuple(out)
+
+
+# ---------------------------------------------------------------- kernel A
+
+SETS_A = {
+    "K2": (b"the", b"he"),
+    "K5-overlap-prefix-1byte-nl": (b"a", b"ab", b"abc", b"\nthe", b"e a"),
+    "K16": variants(16),
+    "K64-len64": variants(63) + ((bytes(range(97, 123)) * 3)[:64],),
+}
+
+
+@pytest.mark.parametrize(
+    "name,cs,ww",
+    [("K2", True, False), ("K5-overlap-prefix-1byte-nl", False, False),
+     ("K16", True, True), ("K64-len64", False, True)],
+)
+def test_block_stats_multi_matches_pallas_scan_multi(name, cs, ww):
+    patterns = SETS_A[name]
+    text = naive.gen_corpus(11, 3000, ALPHABET) + b" ".join(patterns)
+    jst, tst = stage_both(text)
+    c, l, mk = pallas_swar.scan_multi(
+        jst.u32, jst.true_len, patterns=patterns, case_sensitive=cs,
+        whole_word=ww, want_mask=True, want_lines=True, interpret=True,
+    )
+    stats, mask = literal.block_stats_multi(
+        tst.u8, tst.true_len, tst.n_blocks, patterns=patterns,
+        case_sensitive=cs, whole_word=ww, want_mask=True,
+    )
+    tot = lines.combine_block_stats(stats)
+    assert tot[:2].tolist() == [int(c), int(l)]
+    assert np.array_equal(mask.numpy(), np.asarray(mk).view(np.uint8)[: mask.shape[0]])
+    want = union_starts(text, patterns, cs, ww)
+    assert torch.nonzero(mask).squeeze(1).tolist() == want
+    # the staged route returns the same, with per-block match counts
+    totals, mask2, group_counts = dispatch.scan_multi_staged(
+        tst, patterns=patterns, case_sensitive=cs, whole_word=ww, want_mask=True,
+    )
+    assert torch.equal(totals, tot) and torch.equal(mask2, mask)
+    assert torch.equal(group_counts, stats[:, 0])
+
+
+@pytest.mark.parametrize("text", [b"_^ab cd\n", b"_^ab_^ab ^ab\ncd_^cd\n", b"x_^^cd_ab^\n"])
+def test_block_stats_multi_whole_word_after_underscore_caret(text):
+    """-w after "_^": held to naive (the Pallas kernels drop these)."""
+    patterns = (b"ab", b"cd", b"^ab")
+    text = text * 300
+    tst = dispatch.stage(text, CPU)
+    stats, mask = literal.block_stats_multi(
+        tst.u8, tst.true_len, tst.n_blocks, patterns=patterns, whole_word=True,
+        want_mask=True,
+    )
+    per = [naive.all_starts(text, p, True, True) for p in patterns]
+    want = sorted({s for ss in per for s in ss})
+    assert torch.nonzero(mask).squeeze(1).tolist() == want
+    tot = lines.combine_block_stats(stats)
+    assert tot[:2].tolist() == [sum(map(len, per)), naive.matched_lines(text, want)]
+
+
+def test_block_stats_multi_across_blocks():
+    """Matches that straddle the 64 KiB block edges, and -w before-bytes in
+    the previous block, over three blocks."""
+    patterns = (b"edge", b"ab", b"x")
+    text = bytearray(naive.gen_corpus(12, 200_000, b"cde xy_\n"))
+    text[65534:65538] = b"edge"     # straddles the first block edge
+    text[131071:131075] = b"_ab "   # -w before-byte in the previous block: no match
+    text[196607:196611] = b" ab "   # ... a space there: a match
+    text = bytes(text)
+    tst = dispatch.stage(text, CPU)
+    for cs, ww in ((True, False), (False, True)):
+        stats, mask = swar.scan_blocks_multi(
+            tst.u8, tst.true_len, tst.n_blocks, patterns=patterns,
+            case_sensitive=cs, whole_word=ww, want_mask=True,
+        )
+        per = [naive.all_starts(text, p, cs, ww) for p in patterns]
+        want = sorted({s for ss in per for s in ss})
+        assert torch.nonzero(mask).squeeze(1).tolist() == want
+        assert swar.combine_blocks(stats)[:2].tolist() == [
+            sum(map(len, per)), naive.matched_lines(text, want)
+        ]
+
+
+def test_pattern_set_layout():
+    """The kernel's pattern set: lengths, the first-byte bitmap and the
+    buckets that group pattern indices by first byte."""
+    patterns = (b"the", b"a", b"tab", bytes(range(1, 65)), b"\nx")
+    buf = swar._pattern_set(patterns)
+    assert buf.shape == (swar.PATTERN_SET_BYTES,)
+    lens = buf[swar._SET_LEN : swar._SET_MAP].view(np.int32)
+    assert lens[: len(patterns)].tolist() == [3, 1, 3, 64, 2]
+    bits = np.unpackbits(buf[swar._SET_MAP : swar._SET_OFF], bitorder="little")
+    assert np.flatnonzero(bits).tolist() == sorted({p[0] for p in patterns})
+    off = buf[swar._SET_OFF : swar._SET_OFF + 257]
+    bucket = buf[swar._SET_BUCKET : swar._SET_BUCKET + len(patterns)]
+    for c in range(256):
+        got = bucket[off[c] : off[c + 1]].tolist()
+        assert got == [k for k, p in enumerate(patterns) if p[0] == c]
+    for k, p in enumerate(patterns):
+        row = buf[swar._SET_BYTES + 64 * k : swar._SET_BYTES + 64 * (k + 1)]
+        assert row[: len(p)].tobytes() == p and not row[len(p) :].any()
+
+
+# ---------------------------------------------------------------- kernel C
+
+SETS_C = {
+    "one-window-K32": variants(32),
+    "two-window-K40": mixed_set(40, 777),
+    "whole-word-K33": variants(30) + (b"ab", b"the quick brown fox jump", b"x"),
+}
+
+
+@pytest.mark.parametrize(
+    "name,cs,ww",
+    [("one-window-K32", True, False), ("two-window-K40", False, False),
+     ("whole-word-K33", False, True)],
+)
+def test_hamming_plain_matches_mxu_scan_count(name, cs, ww):
+    patterns = SETS_C[name]
+    assert any(len(p) > mxu.MAX_LEN for p in patterns) == (name != "one-window-K32")
+    text = naive.gen_english(13, 3000) + b" ".join(patterns)
+    if not cs:
+        text = text.upper()
+    jst, tst = stage_both(text)
+    c, mk = mxu_multi.scan_count(
+        jst.u32, jst.true_len, patterns=patterns, case_sensitive=cs,
+        whole_word=ww, want_mask=True, interpret=True,
+    )
+    total, mask, group_counts = mxu.scan_count(
+        tst, patterns=patterns, case_sensitive=cs, whole_word=ww, want_mask=True
+    )
+    assert int(total) == int(c) == sum(len(naive.all_starts(text, p, cs, ww)) for p in patterns)
+    assert np.array_equal(mask.numpy(), np.asarray(mk).view(np.uint8)[: mask.shape[0]])
+    assert torch.nonzero(mask).squeeze(1).tolist() == union_starts(text, patterns, cs, ww)
+    assert int(group_counts.sum()) == int(total)
+
+
+@pytest.mark.parametrize("text", [b"_^ab cd\n", b"_^ab_^ab ^ab\ncd_^cd\n"])
+def test_hamming_whole_word_after_underscore_caret(text):
+    """-w after "_^": held to naive (mxu_multi's boundary flags drop these)."""
+    patterns = variants(30) + (b"ab", b"cd", b"^ab")
+    text = text * 200
+    tst = dispatch.stage(text, CPU)
+    total, mask, _ = mxu.scan_count(tst, patterns=patterns, whole_word=True, want_mask=True)
+    assert int(total) == sum(len(naive.all_starts(text, p, True, True)) for p in patterns)
+    assert torch.nonzero(mask).squeeze(1).tolist() == union_starts(text, patterns, True, True)
+
+
+@pytest.mark.parametrize("ww", [False, True], ids=["plain", "w"])
+@pytest.mark.parametrize("name", list(SETS_C) + ["K256"])
+def test_build_tables_matches_reference(name, ww):
+    patterns = SETS_C.get(name) or mixed_set(256, 5)
+    for cs in (True, False):
+        ref = mxu_multi.build_tables(patterns, cs, ww)
+        own = mxu.build_tables(patterns, cs, ww)
+        for a, b in zip(ref[:6], own[:6]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert np.array_equal(np.asarray(a), b) and np.asarray(a).dtype == b.dtype
+        assert ref[6:] == own[6:]
+        conv = convert.mxu_tables_from_reference(ref, CPU)
+        mine = mxu.device_tables(own, CPU)
+        for f in mxu.HammingTables._fields:
+            x, y = getattr(conv, f), getattr(mine, f)
+            assert (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y), f
+
+
+def kernel_layout_scan(text: torch.Tensor, n_blocks: int, t: mxu.HammingTables, cs: bool):
+    """The Hamming kernel's arithmetic on its own operands (16x16 fragments,
+    regrouped rows, boundary byte offsets), in numpy: per-word counts and
+    phase flags."""
+    b = text.numpy() if cs else literal._fold(text).numpy()
+    nw = n_blocks * literal.BLOCK_BYTES // 4
+    words = np.arange(nw)
+
+    def untile(frags):
+        mt, kt = frags.shape[:2]
+        return frags.numpy().transpose(0, 2, 1, 3).reshape(16 * mt, 16 * kt).astype(np.float64)
+
+    def bits(j0):
+        idx = 4 * words[None, :] + np.arange(j0, j0 + 16)[:, None]
+        bits8 = (b[idx][:, None, :] >> np.arange(8)[None, :, None]) & 1
+        return bits8.reshape(128, nw).astype(np.float64)
+
+    w1 = [bits(0)]
+    if t.boundary is not None:
+        is_w = literal._is_word_char(torch.from_numpy(b)).numpy()
+        rows = []
+        for off in np.frombuffer(t.boundary, np.int8):
+            if off == -128:
+                rows.append(np.zeros(nw))
+            else:
+                pos = 4 * words + off
+                rows.append(np.where(pos >= 0, is_w[pos.clip(0)], 0).astype(np.float64))
+        w1.append(np.stack(rows))
+    rows_info = t.rows.numpy()
+    hit = untile(t.g1_frags) @ np.concatenate(w1) == rows_info[:, :1]
+    if t.g2_frags is not None:
+        lo = 16 * t.long_tile0
+        hit[lo:] &= untile(t.g2_frags) @ bits(16) == rows_info[lo:, 1:2]
+    flags = np.zeros((4, nw), bool)
+    for p in range(4):
+        flags[p] = hit[rows_info[:, 2] == p].any(0)
+    return hit.sum(0), flags
+
+
+@pytest.mark.parametrize("ww", [False, True], ids=["plain", "w"])
+@pytest.mark.parametrize("name", list(SETS_C))
+def test_kernel_operands_reproduce_plain(name, ww):
+    """The CUDA kernel's operands, used the way the kernel uses them, give
+    the plain version's counts and mask."""
+    patterns = SETS_C[name]
+    text = naive.gen_english(14, 3000) + b"\n".join(patterns) + b" x"
+    for cs in (True, False):
+        tst = dispatch.stage(text if cs else text.upper(), CPU)
+        tables = mxu.device_tables(mxu.build_tables(patterns, cs, ww), CPU)
+        per_word, flags = kernel_layout_scan(tst.u8, tst.n_blocks, tables, cs)
+        counts, mask = mxu.hamming_scan_plain(
+            tst.u8, tst.n_blocks, tables, case_sensitive=cs, want_mask=True
+        )
+        assert per_word.sum() == int(counts.sum()) > 0
+        assert np.array_equal(flags.T.reshape(-1), mask.numpy().astype(bool))
+
+
+def test_hamming_plain_chunks_and_blocks(monkeypatch):
+    """Chunks of 1000 words over three 64 KiB blocks: per-block counts and
+    the mask do not depend on the chunking."""
+    patterns = mixed_set(36, 9)
+    text = naive.gen_english(15, 150_000)
+    tst = dispatch.stage(text, CPU)
+    tables = mxu.device_tables(mxu.build_tables(patterns, True, True), CPU)
+    whole = mxu.hamming_scan_plain(tst.u8, tst.n_blocks, tables, want_mask=True)
+    monkeypatch.setattr(mxu, "PLAIN_CHUNK_WORDS", 1000)
+    parts = mxu.hamming_scan_plain(tst.u8, tst.n_blocks, tables, want_mask=True)
+    assert torch.equal(whole[0], parts[0]) and torch.equal(whole[1], parts[1])
+    per = [naive.all_starts(text, p, True, True) for p in patterns]
+    starts = np.concatenate([np.asarray(x, np.int64) for x in per])
+    blocks = np.bincount(starts // 65536, minlength=tst.n_blocks)
+    assert whole[0].tolist() == blocks.tolist()
+
+
+# ---------------------------------------------------------------- kernel B
+
+@pytest.mark.parametrize("patterns", [(b"\nthe", b"fox", b"e\n"), (b"fox", b"e\n", b"the")])
+def test_lines_block_stats_matches_lines_from_mask(patterns):
+    """With a pattern that starts with '\\n' (flags on newline bytes) the
+    Pallas kernel is held with nl_start_matches on, as its caller sets it;
+    without one, no flag sits on a newline and both settings agree."""
+    text = naive.gen_english(16, 70_000)
+    jst, tst = stage_both(text)
+    _, mask = literal.block_stats_multi(
+        tst.u8, tst.true_len, tst.n_blocks, patterns=patterns, want_mask=True
+    )
+    nl = torch.from_numpy(np.frombuffer(text, np.uint8) == 10)
+    nl_start = any(p[:1] == b"\n" for p in patterns)
+    assert bool(mask[: len(text)][nl].any()) == nl_start
+    want = {
+        int(pallas_swar.lines_from_mask(
+            jst.u32, mask.numpy().view(np.uint32), jst.true_len,
+            nl_start_matches=flag, interpret=True,
+        ))
+        for flag in ({True} if nl_start else {False, True})
+    }
+    assert len(want) == 1
+    want = want.pop()
+    stats = swar.lines_blocks(tst.u8, mask, tst.n_blocks)
+    assert torch.equal(stats, literal.lines_block_stats(tst.u8, mask, tst.n_blocks))
+    got = int(swar.combine_blocks(stats)[1])
+    assert got == want == naive.matched_lines(text, torch.nonzero(mask).squeeze(1).tolist())
+
+
+# ------------------------------------------------------- search and CLI
+
+def same(a, b):
+    assert (a.count, a.text_len) == (b.count, b.text_len)
+    assert a.positions.tolist() == b.positions.tolist()
+
+
+TEXT = naive.gen_english(17, 100_000) + b"\n" + b"the quick brown fox jumps over lazy dog " * 3
+
+ROUTES = {
+    "K3": (b"the", b"fox", b"Sherlock"),
+    "K16": variants(16),
+    "K40-hamming": mixed_set(40, 3),
+    "K70-grouped-hamming": variants(70),
+    "K70-grouped-fused": variants(69) + (b"x" * 40,),
+    "long-member": (b"the", b"quick brown", b"the quick brown fox jumps over lazy dog " * 2),
+    "slabs": (b"the", b"e\nthe", b"Holmes"),
+}
+MODES = {
+    "c": dict(count_mode=True),
+    "c-o": dict(count_mode=True, only_matching=True),
+    "o": dict(only_matching=True),
+    "m": dict(max_count=7, only_matching=True),
+    "i": dict(case_sensitive=False, only_matching=True),
+    "w": dict(whole_word=True, only_matching=True),
+    "i-w-c": dict(case_sensitive=False, whole_word=True, count_mode=True),
+    "m-c": dict(max_count=5, count_mode=True),
+}
+
+
+def route_of(name, monkeypatch):
+    if name == "slabs":
+        monkeypatch.setattr(search_mod, "SLAB_BYTES", 40_000)  # three slabs
+    return ROUTES[name]
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_search_string_matches_krep_tpu_host_route(name, mode, monkeypatch):
+    """Every route x mode against krep_tpu's native host route (the
+    reference that chip_smoke.py uses on the card)."""
+    patterns = route_of(name, monkeypatch)
+    p = SearchParams(patterns=patterns, **MODES[mode])
+    got = search_string(p, TEXT, device="cpu")
+    monkeypatch.setenv("KREP_TPU_HOST_BREAKEVEN", REF_HOST)
+    same(got, krep_tpu.search_string(p, TEXT, threads=1))
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_search_string_matches_krep_tpu_device_route(name, monkeypatch):
+    """Each route against krep_tpu's own device route (as its tests run
+    it here), in the modes where the routes differ most."""
+    patterns = route_of(name, monkeypatch)
+    for mode in ("c", "o"):
+        p = SearchParams(patterns=patterns, **MODES[mode])
+        same(search_string(p, TEXT, device="cpu"), krep_tpu.search_string(p, TEXT, threads=1))
+
+
+def test_routes_reach_their_kernels_plain_versions(monkeypatch):
+    """Which kernel each route runs: K=40 on the Hamming products, its -c
+    through the lines kernel; K<=31 on the fused pass."""
+    calls = []
+    for mod, name in ((mxu, "hamming_scan"), (swar, "scan_blocks_multi"),
+                      (swar, "lines_blocks")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, **k: calls.append(_n) or _f(*a, **k))
+    search_string(SearchParams(patterns=ROUTES["K40-hamming"], count_mode=True), TEXT, device="cpu")
+    assert calls == ["hamming_scan", "lines_blocks"]
+    calls.clear()
+    search_string(SearchParams(patterns=ROUTES["K16"], only_matching=True), TEXT, device="cpu")
+    assert calls == ["scan_blocks_multi"]
+    calls.clear()
+    search_string(SearchParams(patterns=variants(31) + (b"\0x", b"\0y"), count_mode=True,
+                               only_matching=True), TEXT, device="cpu")
+    assert calls == ["scan_blocks_multi"]  # a NUL keeps K=33 off the Hamming route
+
+
+def test_grouped_count_stops_at_max_count(monkeypatch):
+    """-c -o -m over K > 64 fused groups stops launching once the cap is
+    reached."""
+    patterns = ROUTES["K70-grouped-fused"]
+    assert not multi._mxu_eligible(patterns)
+    calls = []
+    real = dispatch.scan_multi_staged
+    monkeypatch.setattr(dispatch, "scan_multi_staged",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    p = SearchParams(patterns=patterns, count_mode=True, only_matching=True, max_count=10)
+    assert search_string(p, TEXT, device="cpu").count == 10
+    assert len(calls) == 1  # the first group of 64 reached the cap
+
+
+def test_multi_gpu_route_not_ported(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        multi.search_multi(SearchParams(patterns=(b"a", b"b")), TEXT, (b"a", b"b"),
+                           torch.device("cuda", 0))
+
+
+def run(main, argv, stdin=b"", **kw):
+    out = io.BytesIO()
+    old = sys.stdin
+    sys.stdin = io.TextIOWrapper(io.BytesIO(stdin))
+    try:
+        rc = main(list(argv), out=out, **kw)
+    finally:
+        sys.stdin = old
+    return out.getvalue(), rc
+
+
+CLI_ARGSETS = [
+    ["-e", "the", "-e", "fox", "-o"],
+    ["-e", "the", "-e", "fox", "-c"],
+    ["--regexp", "the", "-e", "fox", "-c"],
+    ["-e", "the", "-e", "Sherlock", "-e", "dog"],
+    ["-w", "-i", "-o", "-e", "THE", "-e", "fox"],
+    ["-m", "4", "-o", "-e", "the", "-e", "he"],
+    ["-f", "PATFILE"],
+    ["-c", "-o", "-f", "PATFILE"],
+    ["-f", "-", "-c"],
+]
+
+
+@pytest.mark.parametrize("args", CLI_ARGSETS, ids=lambda a: " ".join(a))
+def test_cli_matches_krep_tpu(args, tmp_path):
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(naive.gen_english(18, 30_000))
+    patfile = tmp_path / "pats.txt"
+    patfile.write_bytes(b"\n".join(variants(20)) + b"\n")
+    argv = [str(patfile) if a == "PATFILE" else a for a in args] + [str(corpus)]
+    stdin = patfile.read_bytes() if "-" in args else b""
+    got = run(cli.main, argv, stdin, device="cpu")
+    assert got[1] == 0
+    assert got == run(jcli.main, argv, stdin)

@@ -142,8 +142,8 @@ def test_search_file_and_not_ported(tmp_path):
     path.write_bytes(TEXT)
     p = SearchParams(patterns=(b"the",), count_mode=True)
     assert search_file(p, str(path), device="cpu").count == krep_tpu.search_file(p, str(path)).count
-    with pytest.raises(NotImplementedError, match="not ported"):
-        search_string(SearchParams(patterns=(b"a", b"b")), TEXT, device="cpu")
+    p = SearchParams(patterns=(b"a", b"b"))  # several patterns search now (tests/test_torch_multi.py)
+    same(search_string(p, TEXT, device="cpu"), krep_tpu.search_string(p, TEXT, threads=1))
     with pytest.raises(NotImplementedError, match="not ported"):
         search_string(SearchParams(patterns=(b"a.c",), use_regex=True), TEXT, device="cpu")
 
@@ -197,10 +197,11 @@ def test_cli_matches_krep_tpu(corpus_file, args):
 
 def test_cli_string_mode_and_errors(tmp_path):
     for argv in (["-s", "the", "the theme thread"], ["-o", "-s", "he", "hehe he"],
-                 ["-c"], ["-m", "x", "-c", "the", str(tmp_path / "missing")]):
+                 ["-c"], ["-m", "x", "-c", "the", str(tmp_path / "missing")],
+                 ["-e", "a", "-e", "b", "-s", "ab"]):
         assert run(cli.main, argv, device="cpu") == run(jcli.main, argv)
-    for argv in (["-E", "a.c", str(tmp_path)], ["-e", "a", "-e", "b", "-s", "ab"],
-                 ["-r", "the", str(tmp_path)]):
+    for argv in (["-E", "a.c", str(tmp_path)], ["-r", "the", str(tmp_path)],
+                 ["-r", "-e", "a", "-e", "b", str(tmp_path)]):
         assert run(cli.main, argv, device="cpu")[1] == 2
     out, rc = run(cli.main, ["-v"], device="cpu")
     assert rc == 0 and b"torch" in out
@@ -232,6 +233,17 @@ r = search_string(SearchParams(patterns=(b"the",), only_matching=True), text, de
 assert r.count == 15000, r.count
 out = io.BytesIO()
 assert cli.main(["-c", "-s", "the", "the a the\nb the"], out=out) == 0
+assert out.getvalue() == b"2\n", out.getvalue()
+# multi-pattern: fused pass (K=3), Hamming products (K=40) and its -c lines
+pats = [b"the", b"cat", b"theme"] + [b"x%02d" % i for i in range(37)]
+r = search_string(SearchParams(patterns=tuple(pats[:3]), only_matching=True), text, device="cpu")
+assert r.count == 25000, r.count
+r = search_string(SearchParams(patterns=tuple(pats), count_mode=True, only_matching=True), text, device="cpu")
+assert r.count == 25000, r.count
+r = search_string(SearchParams(patterns=tuple(pats), count_mode=True), text, device="cpu")
+assert r.count == 10000, r.count
+out = io.BytesIO()
+assert cli.main(["-c", "-e", "cat", "-s", "no", "a cat\nno"], out=out) == 0
 assert out.getvalue() == b"2\n", out.getvalue()
 assert "jax" not in sys.modules
 print("no-jax ok")
