@@ -75,6 +75,34 @@ The recursive slice (-r) adds:
                walker's full batch (past 64 MiB: the 1,536-block bucket, the
                main path's shape) and the largest batch within 64 MiB (1,024
                blocks); the scan kernel timed alone, without the fix-up.
+The sharded slice (parallel/mesh.py, -t) adds:
+  3m. kernels — the shard modes against their plain versions, exactly, at
+               64 MiB, on text with a match across the start limit and one
+               at byte 0: the K-pattern scan with start_limit and prev_word
+               (K = 2, 16, 64; with and without -i and -w; prev_word 0 and
+               1) and the Hamming kernel with start_limit and prev_flag (the
+               64-variant and mixed sets, with and without -w);
+  4m. main path — search_string and the CLI on a machine that names this
+               card 4 times (mesh.devices patched to (cuda:0,) * 4), so the
+               engine's own rule routes to the sharded route: on the 1 GiB
+               corpus `-c the`, `-c -i -w the`, `-c -o` and `-c` with the 16
+               literals, `-c -o` with the 64 variants (the Hamming kernel per
+               shard), `-c -o` with a 70-byte pattern across a shard edge (the
+               sharded prefix filter), and on its first 64 MiB `-o the`, each
+               equal to the single-device route (-t 1); the CLI's `-c the`
+               and `-o the` byte-identical to the native host route and `-c`
+               with the 16 literals to the single-device CLI; then, on a
+               machine of 8 such devices, `-t 3`, `-t 4` and `-t 8` on a
+               64 MiB text with "athe" planted across every shard edge,
+               byte-identical to the native host route. Every run must have
+               staged the mesh its -t asks for, and the shard modes must have
+               launched; mesh.dryrun(4). With more than one card, the real
+               mesh and the CLI too (`-c the`, `-o the`, `-c -f pats16`,
+               byte-identical to the native host route);
+  5m. shapes  — both shard modes at the main path's shard shape (a 256 MiB
+               shard of the 1 GiB corpus: 4,096 blocks + the halo) against
+               their plain versions, exactly, then timed with CUDA events
+               beside their bounds, the Hamming mode beside torch._int_mm.
 It then prints one JSON line of kernels and, last, the result line. It
 exits non-zero, with no result line, when any phase fails or no card is
 available. Imports nothing of jax.
@@ -380,8 +408,8 @@ def reset_launches() -> None:
     from krep_tpu_torch.ops import mxu, swar
 
     swar.LAUNCHES = swar.COMBINE_LAUNCHES = swar.MULTI_LAUNCHES = swar.LINES_LAUNCHES = 0
-    swar.FIRST_LINE_LAUNCHES = swar.FIXUP_LAUNCHES = 0
-    mxu.LAUNCHES = 0
+    swar.FIRST_LINE_LAUNCHES = swar.FIXUP_LAUNCHES = swar.MULTI_SHARD_LAUNCHES = 0
+    mxu.LAUNCHES = mxu.SHARD_LAUNCHES = 0
 
 
 def read_launches(*names: str) -> dict:
@@ -392,7 +420,9 @@ def read_launches(*names: str) -> dict:
               "scan_blocks first_line": swar.FIRST_LINE_LAUNCHES,
               "first_line_fixup": swar.FIXUP_LAUNCHES,
               "scan_blocks_multi": swar.MULTI_LAUNCHES, "lines_blocks": swar.LINES_LAUNCHES,
-              "hamming_scan": mxu.LAUNCHES}
+              "hamming_scan": mxu.LAUNCHES,
+              "scan_blocks_multi shard": swar.MULTI_SHARD_LAUNCHES,
+              "hamming_scan shard": mxu.SHARD_LAUNCHES}
     return {k: counts[k] for k in names or counts}
 
 
@@ -429,6 +459,35 @@ def multi_kernels_vs_plain(st, max_err, say_prefix: str, *, patterns, case_sensi
     return counts, mask
 
 
+def shard_modes_vs_plain(st, max_err, route: str, true_len, start_limit: int, prev: int, *,
+                         patterns, case_sensitive, whole_word):
+    """One kernel in its shard mode ("fused": scan_blocks_multi with
+    start_limit and prev_word; "hamming": hamming_scan with start_limit and
+    prev_flag) against its plain version on a staged text; folds the
+    difference into max_err and returns [matches, set mask bytes]."""
+    from krep_tpu_torch.ops import literal, mxu, swar
+
+    if route == "fused":
+        kw = dict(patterns=patterns, case_sensitive=case_sensitive, whole_word=whole_word,
+                  prev_word=prev, start_limit=start_limit, want_mask=True)
+        stats, mask = swar.scan_blocks_multi(st.u8, true_len, st.n_blocks, **kw)
+        pstats, pmask = literal.block_stats_multi(st.u8, true_len, st.n_blocks, **kw)
+        name, counts = "scan_blocks_multi shard", stats[:, 0]
+        err = int((stats - pstats).abs().max())
+    else:
+        tables = mxu.device_tables(mxu.build_tables(patterns, case_sensitive, whole_word),
+                                   st.u8.device)
+        kw = dict(case_sensitive=case_sensitive, want_mask=True, start_limit=start_limit,
+                  prev_flag=prev)
+        counts, mask = mxu.hamming_scan(st.u8, st.n_blocks, tables, **kw)
+        pcounts, pmask = mxu.hamming_scan_plain(st.u8, st.n_blocks, tables, **kw)
+        name = "hamming_scan shard"
+        err = int((counts - pcounts).abs().max())
+    err = max(err, int((mask != pmask).any()), int(mask[start_limit:].any()))
+    max_err[name] = max(max_err[name], err)
+    return [int(counts.sum()), int(mask.sum(dtype=torch.int64))]
+
+
 def single_pattern_identities(st, patterns, *, case_sensitive=True, whole_word=False,
                               want_lines=False):
     """The -c -o total and (want_lines) the -c count of a pattern set from
@@ -462,7 +521,7 @@ def main() -> int:
     os.environ["KREP_TPU_HOST_BREAKEVEN"] = "0"  # the port's runs take the device path
     os.environ.setdefault("KREP_TPU_CACHE_DIR", os.path.join(ROOT, "build", "krep_tpu_cache"))
 
-    from krep_tpu_torch import cli
+    from krep_tpu_torch import SearchParams, cli, search_string
     from krep_tpu_torch.ops import _build, dispatch, literal, mxu, swar
     from krep_tpu_torch.parallel import lines
 
@@ -644,6 +703,43 @@ def main() -> int:
             f"{st.n_blocks} blocks hold no newline, longest line {int(gaps.max())} bytes")
         del st, stats, mask, tot, ltext
 
+        # 3m. the shard modes of the K-pattern scan and of the Hamming kernel
+        # against their plain versions at 64 MiB: a start limit inside the
+        # body with a match across it (matches end past it, in what is the
+        # halo on a shard), and a match at byte 0 with a word byte before
+        # the text (prev_word / prev_flag)
+        limit = MIB64 - 12_345
+        stext = text.copy()
+        for at in (0, limit - 2):
+            stext[at : at + 4] = np.frombuffer(b"the ", np.uint8)
+        st = dispatch.stage(stext, dev)
+        max_err.update({"scan_blocks_multi shard": 0, "hamming_scan shard": 0})
+        n_shard = 0
+        for pats in ((b"the", b"fox"), pats16, pats64):
+            tl = limit + max(map(len, pats)) - 1
+            for cs in (True, False):
+                for ww in (False, True):
+                    for prev in (0, 1):
+                        got = shard_modes_vs_plain(st, max_err, "fused", tl, limit, prev,
+                                                   patterns=pats, case_sensitive=cs,
+                                                   whole_word=ww)
+                        n_shard += 1
+            say(f"shard mode vs plain at 64 MiB: scan_blocks_multi K={len(pats)} limit={limit}: "
+                f"[matches, mask bytes] of the last case {got}")
+        for pats in (pats64, pats_mixed):
+            for ww in (False, True):
+                for prev in (0, 1):
+                    got = shard_modes_vs_plain(st, max_err, "hamming", None, limit, prev,
+                                               patterns=pats, case_sensitive=True, whole_word=ww)
+                    n_shard += 1
+            say(f"shard mode vs plain at 64 MiB: hamming_scan K={len(pats)} limit={limit}: "
+                f"[matches, mask bytes] of the last case {got}")
+        torch.cuda.synchronize()
+        check(max_err["scan_blocks_multi shard"] == 0 and max_err["hamming_scan shard"] == 0,
+              f"shard mode != plain: {max_err}")
+        say(f"shard modes vs plain at 64 MiB: {n_shard} cases, all exact")
+        del st, stext
+
         # 4. main path through the CLI, held to the native host route.
         # First the 1 GiB bucket's pinned host buffer, cold (the first in the
         # process at that size) and warm (from the caching host allocator),
@@ -664,7 +760,12 @@ def main() -> int:
         ]
         refs = reference_clis([args for args, _ in runs])
 
-        def port_cli(args):
+        def port_cli(args, one_card=True):
+            """The port's CLI on `args`: (stdout, rc, wall s). On a machine
+            with several cards the single-card phases pass -t 1, which
+            keeps the CLI off the sharded route (phase 4m drives that)."""
+            if one_card and torch.cuda.device_count() > 1:
+                args = ["-t", "1", *args]
             buf = io.BytesIO()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -872,6 +973,140 @@ def main() -> int:
         launches.update({k: rlaunches[k] for k in ("scan_blocks first_line", "first_line_fixup")})
         del r_outs, r_refs, c5_outs
 
+        # 4m. the sharded route (parallel/mesh.py) through the port's own
+        # entry points, search_string and the CLI, on this card named four
+        # times: mesh.devices answers (cuda:0,) * k, as the tests fake a
+        # machine of several devices, so the engine's own rule (_shards, -t)
+        # routes and shapes the mesh. The shards run one after another on
+        # the one card, so the wall time is no multi-GPU speed. Each result
+        # must equal the single-device route's (held to the native host
+        # route in phases 4 and 4+) or the native host route's own output.
+        from krep_tpu_torch.parallel import mesh as mesh_mod
+
+        corpus = np.memmap(big, dtype=np.uint8, mode="r")
+        long_pat = bytes(corpus[(256 << 20) - 30 : (256 << 20) + 40])  # across shard edge 1
+        mesh_runs = [  # (label, params, bytes searched)
+            ("-c the", SearchParams(patterns=(b"the",), count_mode=True), GIB),
+            ("-c -i -w the", SearchParams(patterns=(b"the",), count_mode=True,
+                                          case_sensitive=False, whole_word=True), GIB),
+            ("-o the (64 MiB)", SearchParams(patterns=(b"the",), only_matching=True), MIB64),
+            ("-c -o, 16 literals", SearchParams(patterns=pats16, count_mode=True,
+                                                only_matching=True), GIB),
+            ("-c, 16 literals", SearchParams(patterns=pats16, count_mode=True), GIB),
+            ("-c -o -f pats64 (Hamming)", SearchParams(patterns=pats64, count_mode=True,
+                                                       only_matching=True), GIB),
+            (f"-c -o, a {len(long_pat)}-byte pattern",
+             SearchParams(patterns=(long_pat,), count_mode=True, only_matching=True), GIB),
+        ]
+
+        def timed_search(p, nbytes, threads):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = search_string(p, corpus[:nbytes], threads=threads, device=dev)
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        singles = [timed_search(p, nbytes, 1) for _, p, nbytes in mesh_runs]
+        real_devices, real_stage = mesh_mod.devices, mesh_mod.stage_shards
+        staged_meshes: list[int] = []  # the shard count of every staging, in order
+
+        def counting_stage(data, mesh):
+            staged_meshes.append(len(mesh))
+            return real_stage(data, mesh)
+
+        def meshes_of(run):
+            """The shard counts that `run` staged."""
+            staged_meshes.clear()
+            out = run()
+            return out, list(staged_meshes)
+
+        # a 64 MiB text with "athe" planted across every shard edge of 3, 4
+        # and 8 shards: "athe" straddles the edge, and "the" starts the
+        # shard after the word byte 'a' (-w must reject it there)
+        edge_text = harden(np.frombuffer(head, np.uint8), seed=21)
+        for d in (3, 4, 8):
+            S = mesh_mod.shard_bytes(MIB64, d)
+            for e in range(S, MIB64, S):
+                edge_text[e - 2 : e + 4] = np.frombuffer(b" athe ", np.uint8)
+        edge_path = os.path.join(workdir, "edges_64m.txt")
+        edge_text.tofile(edge_path)
+        del edge_text
+        edge_runs = [["-c", "-o", "the"], ["-c", "-o", "-w", "the"], ["-c", "-w", "athe"],
+                     ["-c", "-o", "-w", "-e", "the", "-e", "athe"],
+                     ["-c", "-o", "-w", "-f", f64]]
+        edge_refs = reference_clis([args + [edge_path] for args in edge_runs])
+        cli_mesh_runs = [  # (arguments, bytes searched, reference's (stdout, rc), reference)
+            (["-c", "the", big], GIB, refs[0][:2], "native host route"),
+            (["-o", "the", small], MIB64, refs[4][:2], "native host route"),
+            (["-c", *e16, big], GIB, big_outs[1][:2], "single-device route"),
+        ]
+        mesh_mod.stage_shards = counting_stage
+        try:
+            mesh_mod.devices = lambda device: (dev,) * 4
+            reset_launches()
+            shard_outs = [meshes_of(lambda: timed_search(p, nbytes, None))
+                          for _, p, nbytes in mesh_runs]
+            cli_outs = [meshes_of(lambda: port_cli(args, one_card=False))
+                        for args, _, _, _ in cli_mesh_runs]
+            mesh_launches = read_launches("scan_blocks", "combine_blocks",
+                                          "scan_blocks_multi shard", "hamming_scan shard")
+            # -t N shapes the mesh of a machine of eight devices
+            mesh_mod.devices = lambda device: (dev,) * 8
+            edge_outs = [(d, args, meshes_of(lambda: port_cli(["-t", str(d), *args, edge_path],
+                                                               one_card=False)))
+                         for d in (3, 4, 8) for args in edge_runs]
+        finally:
+            mesh_mod.devices, mesh_mod.stage_shards = real_devices, real_stage
+        for (label, p, nbytes), ((got, dt), shards), (want, sdt) in zip(mesh_runs, shard_outs,
+                                                                         singles):
+            equal = got.count == want.count and np.array_equal(got.positions, want.positions)
+            say(f"sharded route, search_string on 4 shards of one card: krep {label}: count "
+                f"{got.count}, {len(got.positions)} positions, {dt:.3f} s | single-device route "
+                f"{sdt:.3f} s | identical={equal}, meshes staged {shards} [{card}]")
+            check(equal, f"sharded route differs from the single-device route for {label}")
+            check(shards and set(shards) == {4}, f"{label} did not take the 4-shard route")
+        for (args, nbytes, ref, what), ((out, rc, dt), shards) in zip(cli_mesh_runs, cli_outs):
+            same = (out, rc) == ref
+            say(f"sharded route, CLI on 4 shards of one card: krep {label_of(args)}: rc={rc} "
+                f"stdout={len(out)} B sha256={hashlib.sha256(out).hexdigest()[:16]} {dt:.3f} s "
+                f"({nbytes / dt / 1e9:.2f} GB/s) | identical to the {what}={same}, meshes "
+                f"staged {shards} [{card}]")
+            check(same, f"krep {label_of(args)} on 4 shards differs from the {what}")
+            check(shards and set(shards) == {4}, f"krep {label_of(args)} did not shard: {shards}")
+        for (d, args, ((out, rc, dt), shards)), (rout, rrc, _) in zip(edge_outs, edge_refs * 3):
+            same = out == rout and rc == rrc
+            say(f"sharded route, CLI of 8 devices, edges planted: krep -t {d} {label_of(args)} "
+                f"edges_64m.txt: {out!r} | native host route {rout!r} | identical={same}, "
+                f"meshes staged {shards}, {dt:.3f} s")
+            check(same, f"-t {d} differs from the native host route: {args}")
+            check(shards and set(shards) == {d}, f"-t {d} staged meshes of {shards}")
+        say(f"launches during the sharded route: {mesh_launches}")
+        check(all(v > 0 for v in mesh_launches.values()), f"a kernel never launched: {mesh_launches}")
+        launches.update({k: mesh_launches[k] for k in ("scan_blocks_multi shard",
+                                                       "hamming_scan shard")})
+        del shard_outs, cli_outs, edge_outs
+        t0 = time.perf_counter()
+        mesh_mod.dryrun(4, dev)
+        say(f"mesh.dryrun(4) on {mesh_mod.mesh_of(4, dev)}: ok, {time.perf_counter() - t0:.2f} s")
+        if torch.cuda.device_count() > 1:
+            # the real devices: search_string and the CLI shard on their own (-t unset)
+            say(f"real mesh: {mesh_mod.devices(dev)}")
+            f16 = pattern_file("pats16.txt", pats16)
+            real_runs = [(["-c", "the", big], GIB), (["-o", "the", small], MIB64),
+                         (["-c", "-f", f16, big], GIB)]
+            real_refs = reference_clis([args for args, _ in real_runs])
+            for (args, nbytes), ref in zip(real_runs, real_refs):
+                check_identical(args, nbytes, port_cli(args, one_card=False), ref)
+            for (label, p, nbytes), (want, _) in zip(mesh_runs, singles):
+                got, dt = timed_search(p, nbytes, None)
+                check(got.count == want.count and np.array_equal(got.positions, want.positions),
+                      f"real mesh differs from the single-device route for {label}")
+                say(f"real mesh of {torch.cuda.device_count()} cards: krep {label}: identical, "
+                    f"{dt:.3f} s [{card}]")
+        else:
+            say("real mesh: this machine has one card; only the repeated mesh ran")
+        del corpus, singles
+
         # 5. kernels vs plain at the main path's shapes, then timed at the
         # 1 GiB `-c the` shape
         corpus = np.memmap(big, dtype=np.uint8, mode="r")
@@ -1068,6 +1303,61 @@ def main() -> int:
                 timing.update(shape_ms)
                 bounds.update(shape_bounds)
             del st, stats, mask, blockwise, work, s_stats, s_mask
+
+        # 5m. both shard modes at the main path's shard shape: shard 1 of the
+        # 1 GiB corpus on 4 shards (S = 256 MiB: 4,096 blocks + the halo,
+        # the byte before it a word byte or not), against the plain
+        # versions on that one shard, exactly; then timed
+        corpus = np.memmap(big, dtype=np.uint8, mode="r")
+        sh = list(mesh_mod.stage_shards(corpus, (dev,) * 4))[1]
+        check(sh.n_blocks == 4096 and sh.owned == 256 << 20, f"shard shape {sh.owned}")
+        tl16 = sh.owned + max(map(len, pats16)) - 1
+        for route, pats, tl in (("fused", pats16, tl16), ("hamming", pats64, None)):
+            got = shard_modes_vs_plain(sh, max_err, route, tl, sh.owned, sh.prev_word,
+                                       patterns=pats, case_sensitive=True, whole_word=False)
+            say(f"shard mode vs plain at the 256 MiB shard: {route} K={len(pats)}: "
+                f"[matches, mask bytes] {got}, prev_word {sh.prev_word}, exact")
+        check(max_err["scan_blocks_multi shard"] == 0 and max_err["hamming_scan shard"] == 0,
+              f"shard mode != plain at the shard shape: {max_err}")
+        kw16 = dict(patterns=pats16, prev_word=sh.prev_word, start_limit=sh.owned)
+        t64s = mxu.device_tables(mxu.build_tables(pats64, True), dev)
+        hk = dict(start_limit=sh.owned, prev_flag=sh.prev_word)
+        shard_ms = {
+            "scan_blocks_multi shard": (
+                cuda_ms(lambda: swar.scan_blocks_multi(sh.u8, tl16, sh.n_blocks, **kw16), 10),
+                cuda_ms(lambda: literal.block_stats_multi(sh.u8, tl16, sh.n_blocks, **kw16), 1),
+            ),
+            "hamming_scan shard": (
+                cuda_ms(lambda: mxu.hamming_scan(sh.u8, sh.n_blocks, t64s, **hk), 5),
+                cuda_ms(lambda: mxu.hamming_scan_plain(sh.u8, sh.n_blocks, t64s, **hk), 1),
+            ),
+        }
+        sbody = sh.n_blocks * 65536
+        shard_bounds = {
+            "scan_blocks_multi shard": bound(sbody + 64 + swar.PATTERN_SET_BYTES
+                                             + 32 * sh.n_blocks),
+            "hamming_scan shard": bound(
+                sbody + 64 + t64s.g1_frags.numel() + t64s.rows.numel() * 4 + 4 * sh.n_blocks,
+                2 * t64s.g1.shape[0] * t64s.g1.shape[1] * (sh.owned // 4), INT8_PEAK),
+        }
+        library["hamming_scan shard"] = int_mm_ms(sh, t64s.g1)
+        for name, (k_ms, p_ms) in shard_ms.items():
+            say(f"timing the 256 MiB shard: {name} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"bound {shard_bounds[name][0]:.4f} ms ({shard_bounds[name][1]}) [{card}]")
+        # the same bytes through each kernel's unbounded instance: the cost
+        # of the shard mode itself
+        unbounded_ms = (
+            cuda_ms(lambda: swar.scan_blocks_multi(sh.u8, sh.owned, sh.n_blocks, patterns=pats16),
+                    10),
+            cuda_ms(lambda: mxu.hamming_scan(sh.u8, sh.n_blocks, t64s), 5),
+        )
+        say(f"timing the 256 MiB shard without a limit: scan_blocks_multi K=16 "
+            f"{unbounded_ms[0]:.4f} ms, hamming_scan {unbounded_ms[1]:.4f} ms [{card}]")
+        say(f"library yardstick: torch._int_mm of G (64 variants) against the window bits of "
+            f"the 256 MiB shard: {library['hamming_scan shard']:.4f} ms [{card}]")
+        timing.update(shard_ms)
+        bounds.update(shard_bounds)
+        del sh, corpus
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1080,6 +1370,8 @@ def main() -> int:
         "scan_blocks_multi": ("multi_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
         "lines_blocks": ("lines_scan.cu", "krep_tpu/ops/pallas_swar.py:1011"),
         "hamming_scan": ("hamming_scan.cu", "krep_tpu/ops/mxu_multi.py:209"),
+        "scan_blocks_multi shard": ("multi_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
+        "hamming_scan shard": ("hamming_scan.cu", "krep_tpu/ops/mxu_multi.py:209"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel krep_tpu/ops/mxu_multi.py `_make_kernel` (built at
 // :209, pallas_call at :722 in `scan_count` :559) in its count and union-mask
-// modes (strict=False, no start_limit, prev_flag=0). The formulation is the
+// modes (strict=False), with and without start_limit and prev_flag (the
+// per-shard count of parallel/mesh.py). The formulation is the
 // TPU kernel's: a match of pattern k at byte 4w+p (word w, phase p) is a
 // Hamming distance of zero between the pattern and the bits of the window
 // at word w, and with the text's bits as features W[(j,b), w] = bit b of
@@ -39,6 +40,14 @@
 // (mxu_multi.py:329-347), and boundary features are direct byte tests (not
 // the TPU kernel's SWAR borrow, which drops matches after "_^").
 // Each block writes its own count: the readback gets per-64 KiB counts.
+//
+// The shard mode (mxu_multi.py:441-449): on a shard the bytes past its owned
+// region are the next shard's text, not zeros, so the staged zero tail no
+// longer stops a window there; start_limit drops every start at or past it,
+// from the counts and the mask. A tile wholly past the limit is skipped
+// (its mask words written as zeros); only the tile that holds the limit
+// compares starts. prev_flag is the -w flag of the byte before the text
+// (the previous shard's last byte), the before-feature of word 0.
 //
 // Simple first: no wgmma, TMA or cp.async; a later version moves the
 // products to mma.sync / wgmma.
@@ -83,7 +92,8 @@ __global__ void __launch_bounds__(kThreads)
 hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restrict__ g1,
                     const signed char* __restrict__ g2, const int4* __restrict__ rows,
                     int mtiles, int long_tile0, BoundaryOffsets bo, int icase,
-                    uint8_t* __restrict__ mask, int* __restrict__ counts) {
+                    long long start_limit, int prev_flag, uint8_t* __restrict__ mask,
+                    int* __restrict__ counts) {
   extern __shared__ __align__(256) uint8_t sm[];
   signed char* w1 = reinterpret_cast<signed char*>(sm);
   signed char* w2 = w1 + KT1 * kNT * kFrag;
@@ -105,6 +115,12 @@ hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restr
   for (int tile = 0; tile < kTilesPerBlock; ++tile) {
     const size_t word0 = size_t(blockIdx.x) * (kBlockBytes / 4) + size_t(tile) * kTileWords;
     const uint8_t* src = text + 4 * word0;
+    // block-uniform: all threads skip the same tiles
+    if (4 * (long long)word0 >= start_limit) {
+      if (mask) reinterpret_cast<uint32_t*>(mask)[word0 + t] = 0;
+      continue;
+    }
+    const bool edge = 4 * (long long)(word0 + kTileWords) > start_limit;
 
     // 1. The tile's text and tail into shared memory, folded for -i.
     if (t < kTileBytes / 16) {
@@ -117,7 +133,8 @@ hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restr
       }
       reinterpret_cast<uint4*>(tb)[t] = v;
     }
-    if (t == 0) tb[-1] = word0 ? src[-1] : 0;  // only its word-ness is read; 0 is a non-word byte
+    // only its word-ness is read: 'a' is a word byte, 0 is not
+    if (t == 0) tb[-1] = word0 ? src[-1] : (prev_flag ? 'a' : 0);
     __syncthreads();
 
     // 2. W: column t is word t of the tile. Fragment (kt, nt) holds feature
@@ -206,6 +223,7 @@ hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restr
         for (int i = 0; i < 8; ++i) {
           int hit = scr1[(r0 + i) * 16 + col] == nb1[i];
           if (two) hit &= scr2[(r0 + i) * 16 + col] == nb2[i];
+          if (edge) hit &= 4 * (long long)(word0 + nt * 16 + col) + phase[i] < start_limit;
           cnt += hit;
           bits |= uint32_t(hit) << phase[i];
         }
@@ -234,8 +252,8 @@ hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restr
 
 template <int KT1, int KT2>
 int launch(const void* text, int nblocks, const void* g1, const void* g2, const void* rows,
-           int mtiles, int long_tile0, const BoundaryOffsets& bo, int icase, void* mask,
-           void* counts, void* stream) {
+           int mtiles, int long_tile0, const BoundaryOffsets& bo, int icase,
+           long long start_limit, int prev_flag, void* mask, void* counts, void* stream) {
   constexpr int smem = smem_bytes(KT1, KT2);
   cudaError_t err = cudaFuncSetAttribute(hamming_scan_kernel<KT1, KT2>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -243,7 +261,7 @@ int launch(const void* text, int nblocks, const void* g1, const void* g2, const 
   hamming_scan_kernel<KT1, KT2><<<nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(text), static_cast<const signed char*>(g1),
       static_cast<const signed char*>(g2), static_cast<const int4*>(rows), mtiles, long_tile0,
-      bo, icase, static_cast<uint8_t*>(mask), static_cast<int*>(counts));
+      bo, icase, start_limit, prev_flag, static_cast<uint8_t*>(mask), static_cast<int*>(counts));
   return int(cudaGetLastError());
 }
 
@@ -255,23 +273,25 @@ int launch(const void* text, int nblocks, const void* g1, const void* g2, const 
 // g1: mtiles x (8, or 11 with `boundary`) int8 16x16 fragments, row-major;
 // g2: (mtiles - long_tile0) x 8 fragments (null for a one-window set);
 // rows: mtiles * 16 int4 of (nb1, nb2, phase, 0); boundary: null, or the 48
-// byte offsets of the -w feature rows. Returns the launch's cudaGetLastError().
+// byte offsets of the -w feature rows. Only starts below `start_limit`
+// count; `prev_flag` is the -w flag of the byte before the text. Returns the
+// launch's cudaGetLastError().
 extern "C" int krep_hamming_scan(const void* text, int nblocks, const void* g1, const void* g2,
                                  const void* rows, int mtiles, int long_tile0,
-                                 const signed char* boundary, int icase, void* mask,
-                                 void* counts, void* stream) {
-  if (nblocks < 1 || mtiles < 1 || long_tile0 < 0 || long_tile0 > mtiles)
+                                 const signed char* boundary, int icase, long long start_limit,
+                                 int prev_flag, void* mask, void* counts, void* stream) {
+  if (nblocks < 1 || mtiles < 1 || long_tile0 < 0 || long_tile0 > mtiles || start_limit < 0)
     return int(cudaErrorInvalidValue);
   BoundaryOffsets bo;
   for (int c = 0; c < kBoundaryCols; ++c) bo.off[c] = boundary ? boundary[c] : kNoByte;
   const bool two = g2 != nullptr && long_tile0 < mtiles;
   if (boundary)
-    return two ? launch<11, 8>(text, nblocks, g1, g2, rows, mtiles, long_tile0, bo, icase, mask,
-                               counts, stream)
-               : launch<11, 0>(text, nblocks, g1, g2, rows, mtiles, mtiles, bo, icase, mask,
-                               counts, stream);
-  return two ? launch<8, 8>(text, nblocks, g1, g2, rows, mtiles, long_tile0, bo, icase, mask,
-                            counts, stream)
-             : launch<8, 0>(text, nblocks, g1, g2, rows, mtiles, mtiles, bo, icase, mask, counts,
-                            stream);
+    return two ? launch<11, 8>(text, nblocks, g1, g2, rows, mtiles, long_tile0, bo, icase,
+                               start_limit, prev_flag, mask, counts, stream)
+               : launch<11, 0>(text, nblocks, g1, g2, rows, mtiles, mtiles, bo, icase,
+                               start_limit, prev_flag, mask, counts, stream);
+  return two ? launch<8, 8>(text, nblocks, g1, g2, rows, mtiles, long_tile0, bo, icase,
+                            start_limit, prev_flag, mask, counts, stream)
+             : launch<8, 0>(text, nblocks, g1, g2, rows, mtiles, mtiles, bo, icase, start_limit,
+                            prev_flag, mask, counts, stream);
 }

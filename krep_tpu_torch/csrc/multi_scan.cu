@@ -2,11 +2,11 @@
 //
 // Replaces the K>1 modes of the TPU kernel krep_tpu/ops/pallas_swar.py
 // `_make_kernel` (built at :396, launched by `_scan_raw` :883, pallas_call
-// at :961; public entry `scan_multi` :980): the all-starts match of up to
-// 64 patterns of 1-64 bytes in one pass, with the -i fold and the -w word
-// boundaries. Outputs the Aho-Corasick count (the sum over patterns of
-// each pattern's all-starts count, multi.py:1-18), the matched-line count
-// of the UNION of matches, and the 0/1 union start mask.
+// at :961; public entries `scan_multi` :980, `scan_shard_multi` :1127): the
+// all-starts match of up to 64 patterns of 1-64 bytes in one pass, with the
+// -i fold and the -w word boundaries. Outputs the Aho-Corasick count (the
+// sum over patterns of each pattern's all-starts count, multi.py:1-18), the
+// matched-line count of the UNION of matches, and the 0/1 union start mask.
 //
 // What bounds it on the card: the per-byte candidate test. Like the K=1
 // kernel (swar_scan.cu) it reads the staged text once, into shared memory,
@@ -30,6 +30,13 @@
 // -w tests each pattern's own after-byte at o + m_k and the byte before
 // directly, as the K=1 kernel does (not the TPU kernel's SWAR borrow, which
 // drops matches after "_^").
+//
+// The shard mode (kShard, for `scan_shard_multi` :1127, the sharded route
+// of parallel/mesh.py) bounds every pattern's starts, and the newlines that
+// count, to [0, start_limit): the shard's owned bytes, while matches may run
+// on into the halo up to true_len. It is a template argument, so the
+// unbounded scans compile as before. prev_word is the -w flag of the byte
+// before the text (the previous shard's last byte), read by block 0.
 
 #include "scan_common.cuh"
 
@@ -47,10 +54,11 @@ struct PatternSet {
 };
 static_assert(sizeof(PatternSet) == 4712, "PatternSet layout is shared with ops/swar.py");
 
+template <bool kShard>
 __global__ void __launch_bounds__(kThreads)
 scan_blocks_multi_kernel(const uint8_t* __restrict__ text, const PatternSet* __restrict__ set,
-                         int icase, int wword, int true_len, uint8_t* __restrict__ mask,
-                         int* __restrict__ stats) {
+                         int icase, int wword, int true_len, int prev_word, int start_limit,
+                         uint8_t* __restrict__ mask, int* __restrict__ stats) {
   extern __shared__ uint32_t smem_words[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(smem_words);
   __shared__ PatternSet ps;
@@ -99,7 +107,11 @@ scan_blocks_multi_kernel(const uint8_t* __restrict__ text, const PatternSet* __r
       prev_w = is_word(smem[sidx(off0 - 1)]);
     else if (blockIdx.x > 0)
       prev_w = is_word(block[-1]);  // folding keeps word-ness
+    else
+      prev_w = prev_word;
   }
+  // kShard: the bytes of this span below start_limit (<= 0: none, > kSpan: all)
+  const int owned = kShard ? start_limit - base - off0 : kSpan;
   Summary s = {0, 0, 0, 0, 0};
   int state = 0;
   uint32_t mword = 0;
@@ -108,7 +120,7 @@ scan_blocks_multi_kernel(const uint8_t* __restrict__ text, const PatternSet* __r
     const int g = base + o;
     const unsigned c = smem[sidx(o)];
     int n = 0;
-    if ((ps.first_map[c >> 5] >> (c & 31)) & 1u) {
+    if ((!kShard || j < owned) && ((ps.first_map[c >> 5] >> (c & 31)) & 1u)) {
       const int e1 = ps.bucket_off[c + 1];
       for (int e = ps.bucket_off[c]; e < e1; ++e) {
         const int k = ps.bucket[e];
@@ -126,7 +138,7 @@ scan_blocks_multi_kernel(const uint8_t* __restrict__ text, const PatternSet* __r
       }
     }
     if (wword) prev_w = is_word(c);
-    walk_step(s, state, n, c == '\n');
+    walk_step(s, state, n, (c == '\n') & (!kShard || j < owned));
     if (mask) {
       mword |= uint32_t(n > 0) << (8 * (j & 3));
       if ((j & 3) == 3) {
@@ -147,17 +159,19 @@ scan_blocks_multi_kernel(const uint8_t* __restrict__ text, const PatternSet* __r
 // set at `set` (a device PatternSet). `text` must hold nblocks * 65536 + 64
 // readable bytes and be 16-byte aligned; `mask` (nullable) receives one 0/1
 // union byte per text byte; `stats` receives 8 int32 per block: matches,
-// first, trail, lead, has_nl, 0, 0, 0. Returns the launch's
-// cudaGetLastError().
+// first, trail, lead, has_nl, 0, 0, 0. `prev_word` is the -w flag of the
+// byte before the text; with `shard`, starts and the newlines that count lie
+// below `start_limit`. Returns the launch's cudaGetLastError().
 extern "C" int krep_scan_blocks_multi(const void* text, int nblocks, const void* set, int icase,
-                                      int wword, int true_len, void* mask, void* stats,
-                                      void* stream) {
+                                      int wword, int true_len, int prev_word, int start_limit,
+                                      int shard, void* mask, void* stats, void* stream) {
   if (nblocks < 1) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_blocks_multi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  auto kernel = shard ? scan_blocks_multi_kernel<true> : scan_blocks_multi_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return int(err);
-  scan_blocks_multi_kernel<<<nblocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<nblocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(text), static_cast<const PatternSet*>(set), icase, wword,
-      true_len, static_cast<uint8_t*>(mask), static_cast<int*>(stats));
+      true_len, prev_word, start_limit, static_cast<uint8_t*>(mask), static_cast<int*>(stats));
   return int(cudaGetLastError());
 }

@@ -8,7 +8,9 @@ reference-exact counts and positions with the host stage
 (engine/resolve.py, copied from krep_tpu).
 
 Everything here takes an explicit `device` (default: $KREP_TORCH_DEVICE,
-else "cuda"). Regex and multi-GPU sharding are not ported yet and raise
+else "cuda"). On a machine with more than one CUDA device, texts of 64 KiB
+and more shard across the devices (parallel/mesh.py) unless -t is 1, as
+krep_tpu shards across its mesh. Regex is not ported yet and raises
 NotImplementedError.
 """
 
@@ -229,17 +231,68 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} not ported to krep_tpu_torch yet")
 
 
-def check_single_device(device: torch.device, n: int, threads: int | None) -> None:
-    """Where krep_tpu would shard over several devices (more than one, a
-    text of 64 KiB or more, -t other than 1), raise: multi-GPU sharding is
-    not ported."""
-    if (
-        device.type == "cuda"
-        and torch.cuda.device_count() > 1
-        and n >= (1 << 16)
-        and threads != 1
-    ):
-        raise _not_ported("multi-GPU sharding")
+SHARD_MIN_BYTES = 1 << 16  # texts from this size shard when the machine has several devices
+
+
+def _shards(device: torch.device, n: int, threads: int | None) -> bool:
+    """krep_tpu's sharding rule (engine/search.py:538): more than one
+    device of `device`'s kind, a text of 64 KiB or more, and -t other than
+    1 (-t 1 forces the single-device path, like the reference's inline
+    single-chunk run, krep.c:2764)."""
+    from ..parallel import mesh
+
+    return len(mesh.devices(device)) > 1 and n >= SHARD_MIN_BYTES and threads != 1
+
+
+def _mesh_for_threads(threads: int | None, device: torch.device) -> tuple:
+    """Map the reference's -t thread count onto the device mesh: auto
+    (None) uses every device (the reference's online-cores default,
+    krep.c:2729-2762); an explicit -t caps the shard count the same way the
+    reference caps its chunk threads. A CPU `device` gives the one CPU."""
+    from ..parallel import mesh
+
+    devs = mesh.devices(device)
+    d = len(devs) if threads is None else max(1, min(threads, len(devs)))
+    return devs[:d]
+
+
+def _search_single_literal_sharded(
+    params: SearchParams, text, policy, device: torch.device,
+    threads: int | None = None,
+) -> SearchResult:
+    """One literal sharded across the mesh of _mesh_for_threads: the
+    reference's thread pool analogue (krep.c:2851-2905)."""
+    from ..parallel import mesh as mesh_mod
+
+    m = len(params.pattern)
+    n = len(text)
+    max_count = params.max_count
+    data = dispatch.as_u8(text)
+
+    need_positions = params.track_positions and not params.count_matches_mode
+    want_mask = need_positions or (
+        not params.count_lines_mode and policy is not MatchPolicy.ALL
+    )
+    count, lines, starts = mesh_mod.sharded_scan(
+        data,
+        params.pattern,
+        case_sensitive=params.case_sensitive,
+        whole_word=params.whole_word,
+        want_mask=want_mask,
+        mesh=_mesh_for_threads(threads, device),
+    )
+    if params.count_lines_mode:
+        c = min(lines, max_count) if max_count is not None else lines
+        return SearchResult(c, _EMPTY_POS, n)
+    if not want_mask:
+        c = min(count, max_count) if max_count is not None else count
+        return SearchResult(c, _EMPTY_POS, n)
+    starts = resolve.apply_policy(starts, m, policy, n)
+    starts = resolve.truncate_max_count(starts, max_count)
+    if params.count_matches_mode:
+        return SearchResult(len(starts), _EMPTY_POS, n)
+    positions = np.stack([starts, starts + m], axis=1).astype(np.int64)
+    return SearchResult(len(starts), positions, n)
 
 
 def _device_scan_literal(staged, pattern, params, want_mask):
@@ -363,7 +416,8 @@ def _search_single_literal_slabbed(
 
 
 def _search_single_literal_longpat(
-    params: SearchParams, text, policy, device: torch.device
+    params: SearchParams, text, policy, device: torch.device,
+    threads: int | None = None,
 ) -> SearchResult:
     """Patterns longer than the kernel's 64 bytes: the device scans the
     first LONG_PATTERN bytes as a filter (still exact on its prefix), the
@@ -375,6 +429,17 @@ def _search_single_literal_longpat(
     # whole-word before-check is prefix-position exact; the after-check
     # depends on the full length, so word filtering is left to the host
     prefix = params.pattern[:LONG_PATTERN]
+    if _shards(device, n, threads):
+        # several devices: the prefix filter shards across the mesh like
+        # any short literal (krep.c:2851-2905); the host check is unchanged
+        from ..parallel import mesh as mesh_mod
+
+        _, _, cands = mesh_mod.sharded_scan(
+            data, prefix, case_sensitive=params.case_sensitive,
+            whole_word=False, want_mask=True,
+            mesh=_mesh_for_threads(threads, device),
+        )
+        return _finish_longpat(params, data, cands, policy)
     cand_parts = []
     pos = 0
     while pos < n:
@@ -421,9 +486,12 @@ def _search_single_literal(
         return hostscan.search_single_host(params, text, policy)
 
     if m > LONG_PATTERN:
-        return _search_single_literal_longpat(params, text, policy, device)
+        return _search_single_literal_longpat(params, text, policy, device, threads)
 
-    check_single_device(device, n, threads)
+    if _shards(device, n, threads):
+        # several devices: shard the bytes across the mesh, before the
+        # slab loop, as krep_tpu does (engine/search.py:538)
+        return _search_single_literal_sharded(params, text, policy, device, threads)
 
     max_count = params.max_count
     if n > SLAB_BYTES:

@@ -118,11 +118,11 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.krep_combine_blocks.restype = i
     lib.krep_combine_blocks.argtypes = [vp, i, vp, vp]
     lib.krep_scan_blocks_multi.restype = i
-    lib.krep_scan_blocks_multi.argtypes = [vp, i, vp, i, i, i, vp, vp, vp]
+    lib.krep_scan_blocks_multi.argtypes = [vp, i, vp, i, i, i, i, i, i, vp, vp, vp]
     lib.krep_lines_blocks.restype = i
     lib.krep_lines_blocks.argtypes = [vp, vp, i, vp, vp]
     lib.krep_hamming_scan.restype = i
     lib.krep_hamming_scan.argtypes = [
-        vp, i, vp, vp, vp, i, i, ctypes.c_char_p, i, vp, vp, vp,
+        vp, i, vp, vp, vp, i, i, ctypes.c_char_p, i, ctypes.c_longlong, i, vp, vp, vp,
     ]
     return lib

@@ -313,24 +313,33 @@ def block_stats_multi(
     patterns: tuple[bytes, ...],
     case_sensitive: bool = True,
     whole_word: bool = False,
+    prev_word: int = 0,
+    start_limit: int | None = None,
     want_mask: bool = False,
 ):
     """Plain twin of the K-pattern CUDA scan kernel: the OR and the sum of
     the patterns' all-starts masks cut into block summaries. Returns
     (n_blocks, 8) int32 [matches, first, trail, lead, has_nl, 0, 0, 0] —
     matches summed over the patterns, the line fields of the union — and
-    the u8 union start mask (None unless want_mask)."""
+    the u8 union start mask (None unless want_mask). The shard mode of
+    pallas_swar.scan_shard_multi: `start_limit` bounds every pattern's
+    starts, and the newlines that count, to [0, start_limit) (each match
+    still ends by true_len); `prev_word` is the -w flag of the byte before
+    the text."""
     body = n_blocks * BLOCK_BYTES
     union = torch.zeros(body, dtype=torch.bool, device=text.device)
     counts = torch.zeros(n_blocks, dtype=torch.int32, device=text.device)
     for p in patterns:
         m = all_starts_mask(
             text, p, case_sensitive=case_sensitive, whole_word=whole_word,
-            true_len=true_len,
+            true_len=true_len, prev_word=prev_word, start_limit=start_limit,
         )[:body]
         union |= m
         counts += m.view(n_blocks, BLOCK_BYTES).sum(1, dtype=torch.int32)
-    stats = _block_summaries(union, text[:body] == NEWLINE, n_blocks)
+    nl = text[:body] == NEWLINE
+    if start_limit is not None:
+        nl[max(0, start_limit):] = False
+    stats = _block_summaries(union, nl, n_blocks)
     stats[:, 0] = counts
     return stats, (union.to(torch.uint8) if want_mask else None)
 

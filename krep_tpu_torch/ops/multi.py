@@ -17,7 +17,8 @@ caller's pattern tuple (not the Hamming tables' shorts-first order) is the
 one attributed.
 
 There is one route per device (CUDA kernels on a CUDA device, their plain
-versions on the CPU); multi-GPU sharding is not ported and raises.
+versions on the CPU). On a machine with several devices, every mode shards
+across them (`_search_multi_sharded`, parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from ..engine import resolve
 from ..engine.search import _EMPTY_POS, SearchResult
+from ..parallel import mesh as mesh_mod
 from ..params import SearchParams
 from . import dispatch, mxu, swar
 
@@ -207,15 +209,96 @@ def _search_multi_mixed(params: SearchParams, text, patterns, device) -> SearchR
     return resolve_positions(params, data, anchors, patterns)
 
 
+def _search_multi_sharded(
+    params: SearchParams, text, patterns, mesh,
+) -> SearchResult:
+    """K patterns sharded across `mesh` (engine._mesh_for_threads), krep_tpu's
+    _search_multi_sharded (the reference's chunk threads sharing one
+    read-only AC trie, krep.c:2524-2536): pure counts of a Hamming-eligible set through the
+    Hamming kernel per shard, one fused group with exact line accounting
+    in the mesh, else fused groups of shorts and of long members'
+    prefixes whose union starts are attributed and verified on the host."""
+    from ..engine import search as engine
+
+    n = len(text)
+    data = dispatch.as_u8(text)
+    mc = params.max_count
+    cs, ww = params.case_sensitive, params.whole_word
+    need_positions = params.track_positions and not params.count_matches_mode
+
+    if params.count_matches_mode and _mxu_eligible(patterns):
+        # the Hamming products per shard: the multi-device route for
+        # large-K pure counting (any K, unlike the fused pass's FUSED_MAX)
+        total = mesh_mod.sharded_count(data, patterns, case_sensitive=cs, whole_word=ww, mesh=mesh)
+        return SearchResult(cap(total, mc), _EMPTY_POS, n)
+
+    shorts = tuple(p for p in patterns if len(p) <= engine.LONG_PATTERN)
+    longs = tuple(p for p in patterns if len(p) > engine.LONG_PATTERN)
+
+    if not longs and len(shorts) <= FUSED_MAX:
+        # one fused group: exact in-mesh line accounting, no host pass
+        total, lines, union_starts = mesh_mod.sharded_scan(
+            data, patterns, case_sensitive=cs, whole_word=ww,
+            want_mask=need_positions, mesh=mesh,
+        )
+        if params.count_lines_mode:
+            return SearchResult(cap(lines, mc), _EMPTY_POS, n)
+        if not need_positions:
+            return SearchResult(cap(total, mc), _EMPTY_POS, n)
+        return resolve_positions(params, data, union_starts, patterns)
+
+    # Grouped route for everything else: any K, whole-word sets, members
+    # over 64 bytes — FUSED_MAX-sized groups of shorts (and of the long
+    # members' prefixes, a superset filter) each scan sharded across the
+    # mesh; the union of candidate starts is attributed and verified on
+    # the host, as on the single-device mixed route.
+    if params.count_matches_mode and not longs:
+        # group totals add exactly (the groups partition the pattern set
+        # and AC's total is the sum of the per-pattern ALL counts)
+        total = sum(
+            mesh_mod.sharded_scan(data, g, case_sensitive=cs, whole_word=ww, mesh=mesh)[0]
+            for g in _groups(shorts, FUSED_MAX)
+        )
+        return SearchResult(cap(total, mc), _EMPTY_POS, n)
+
+    anchor_parts = [
+        mesh_mod.sharded_scan(data, g, case_sensitive=cs, whole_word=ww, want_mask=True,
+                              mesh=mesh)[2]
+        for g in _groups(shorts, FUSED_MAX)
+    ]
+    for g in _groups(longs, FUSED_MAX):
+        # prefixes scan without -w (the after-check at a prefix end means
+        # nothing); the host attribution enforces exact boundaries
+        prefixes = tuple(p[: engine.LONG_PATTERN] for p in g)
+        anchor_parts.append(mesh_mod.sharded_scan(
+            data, prefixes, case_sensitive=cs, want_mask=True, mesh=mesh)[2])
+    anchors = np.unique(np.concatenate(anchor_parts)) if anchor_parts else np.zeros(0, np.int64)
+    if params.count_lines_mode:
+        starts, _ = resolve.attribute_patterns(
+            data, anchors, patterns, case_sensitive=cs, whole_word=ww, anchor="start",
+        )
+        nl = resolve.newline_positions_host(data)
+        lines = len(np.unique(np.searchsorted(nl, starts, side="left")))
+        return SearchResult(cap(lines, mc), _EMPTY_POS, n)
+    return resolve_positions(params, data, anchors, patterns)
+
+
 def search_multi(params: SearchParams, text, patterns, device, threads: int | None = None) -> SearchResult:
     """Device search for the non-empty `patterns` of `params` over a
     non-empty text, routed as krep_tpu's search_multi routes on its SWAR
-    backend: the mixed slab route, the K > FUSED_MAX grouped route
-    (ops/dfa.py), or one fused pass."""
+    backend: the sharded route on a machine with several devices (while a
+    shard stays within SLAB_BYTES), the mixed slab route, the K > FUSED_MAX
+    grouped route (ops/dfa.py), or one fused pass."""
     from ..engine import search as engine
     from . import dfa
 
-    engine.check_single_device(device, len(text), threads)
+    n = len(text)
+    if engine._shards(device, n, threads):
+        # -t shapes the shard count like the reference's chunk threads
+        # (krep.c:2524-2536); -t 1 forces the single-device path
+        mesh = engine._mesh_for_threads(threads, device)
+        if -(-n // len(mesh)) <= engine.SLAB_BYTES:
+            return _search_multi_sharded(params, text, patterns, mesh)
     if any(len(p) > engine.LONG_PATTERN for p in patterns) or len(text) > engine.SLAB_BYTES:
         return _search_multi_mixed(params, text, patterns, device)
     if len(patterns) > FUSED_MAX:

@@ -3,8 +3,10 @@
 Port of krep_tpu/ops/mxu_multi.py in the modes the multi-pattern path uses:
 the ALL-overlap count of up to MXU_MAX_PASS patterns of 1..MAX_LEN_LONG
 NUL-free bytes, and their union start mask, over freshly staged text
-(zeros past true_len, so no explicit start bound: strict=False, no
-start_limit, prev_flag=0).
+(zeros past true_len, so no bound at the text's end: strict=False). The
+sharded route (parallel/mesh.py) adds the shard mode: `start_limit` drops
+the starts past a shard's owned bytes, whose windows read the next shard's
+real text, and `prev_flag` is the -w flag of the byte before the shard.
 
 A match of pattern k at byte 4w+p is a zero Hamming distance over the
 window of 16 bytes at word w, which is linear in the text's bits:
@@ -17,7 +19,8 @@ output in jnp arrays), so both packages use the same tables.
 
 `hamming_scan` launches the CUDA kernel (csrc/hamming_scan.cu, WMMA on the
 int8 tensor cores) on a CUDA tensor and runs `hamming_scan_plain`, the same
-products in float32, on a CPU tensor. `LAUNCHES` counts kernel launches.
+products in float32, on a CPU tensor. `LAUNCHES` counts kernel launches,
+`SHARD_LAUNCHES` those of them in the shard mode.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ MXU_MAX_PASS = 256    # patterns per pass
 PLAIN_CHUNK_WORDS = 1 << 18  # 1 MiB of text per plain product
 
 LAUNCHES = 0
+SHARD_LAUNCHES = 0
+NO_LIMIT = 1 << 62    # start_limit of the kernel when there is none
 
 # Kernel operand geometry (csrc/hamming_scan.cu).
 _FRAG = 16
@@ -198,14 +203,17 @@ def _window_bits(t: torch.Tensor, words: torch.Tensor, j0: int, nj: int) -> torc
 def hamming_scan_plain(
     text: torch.Tensor, n_blocks: int, tables: HammingTables, *,
     case_sensitive: bool = True, want_mask: bool = False,
+    start_limit: int | None = None, prev_flag: int = 0,
 ):
     """Plain twin of the Hamming kernel: per-64 KiB-block match counts
     (n_blocks,) int32 and the u8 0/1 union start mask over the body (None
     unless want_mask), from the same products D = G @ W in float32 (with
     the -w boundary features when the tables have them), in
-    chunks of PLAIN_CHUNK_WORDS words. Every W and G entry is 0 or +-1 and
-    |D| <= 176, so float32 — and TF32 as well — is exact; TF32 is turned
-    off on the card anyway, so exactness never rests on that bound."""
+    chunks of PLAIN_CHUNK_WORDS words. Only starts below `start_limit`
+    count; `prev_flag` is the -w flag of the byte before the text. Every W
+    and G entry is 0 or +-1 and |D| <= 176, so float32 — and TF32 as well
+    — is exact; TF32 is turned off on the card anyway, so exactness never
+    rests on that bound."""
     if text.device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     dev = text.device
@@ -230,7 +238,7 @@ def hamming_scan_plain(
             for q in tables.qs:
                 idx = 4 * (words[None, :] + q) + torch.arange(4, device=dev)[:, None]
                 feats.append(is_w[idx].to(torch.float32))
-            before = is_w[(4 * words - 1).clamp(min=0)] & (words > 0)
+            before = torch.where(words > 0, is_w[(4 * words - 1).clamp(min=0)], bool(prev_flag))
             feats.append(before.to(torch.float32)[None, :])
             pad = g1.shape[1] - sum(f.shape[0] for f in feats)
             feats.append(torch.zeros((pad, words.shape[0]), device=dev))
@@ -239,6 +247,9 @@ def hamming_scan_plain(
             hits2 = (g2 @ _window_bits(t, words, 16, g2.shape[1] // 8)) == nb2
             for p in range(4):
                 hits[p * Kp + kp_s : (p + 1) * Kp] &= hits2[p * kp_l : (p + 1) * kp_l]
+        if start_limit is not None:  # row p * Kp + k starts at byte 4w + p
+            starts = 4 * words[None, :] + torch.arange(4, device=dev)[:, None]
+            hits = (hits.view(4, Kp, -1) & (starts < start_limit)[:, None, :]).view(4 * Kp, -1)
         per_word[words[0] : words[-1] + 1] = hits.sum(0, dtype=torch.int32)
         if want_mask:
             anyp = hits.view(4, Kp, -1).any(1)                     # (4, nw)
@@ -250,18 +261,25 @@ def hamming_scan_plain(
 def hamming_scan(
     text: torch.Tensor, n_blocks: int, tables: HammingTables, *,
     case_sensitive: bool = True, want_mask: bool = False,
+    start_limit: int | None = None, prev_flag: int = 0,
 ):
     """Per-64 KiB-block match counts (n_blocks,) int32 and the u8 0/1 union
     start mask (None unless want_mask) of the tables' patterns over the
     first n_blocks * 64 KiB bytes of staged `text` (flat uint8, zero past
     true_len, holding 64 more bytes: the staged halo). -w is whatever the
-    tables were built for; `case_sensitive` must match them too."""
+    tables were built for; `case_sensitive` must match them too. With a
+    `start_limit` (the shard mode) only starts below it count, and the
+    bytes past it may be real text; `prev_flag` is the -w flag of the byte
+    before the text."""
     from . import swar
 
     body = swar._check_text(text, n_blocks, swar.TAIL_BYTES)
+    if start_limit is not None and start_limit < 0:
+        raise ValueError("start_limit must not be negative")
     if swar._device_kind(text) == "cpu":
         return hamming_scan_plain(
             text, n_blocks, tables, case_sensitive=case_sensitive, want_mask=want_mask,
+            start_limit=start_limit, prev_flag=prev_flag,
         )
 
     from . import _build
@@ -276,23 +294,29 @@ def hamming_scan(
             None if tables.g2_frags is None else tables.g2_frags.data_ptr(),
             tables.rows.data_ptr(), tables.g1_frags.shape[0], tables.long_tile0,
             tables.boundary, int(not case_sensitive),
+            NO_LIMIT if start_limit is None else int(start_limit), int(bool(prev_flag)),
             None if mask is None else mask.data_ptr(), counts.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(f"hamming_scan kernel launch failed: CUDA error {err}")
-    global LAUNCHES
+    global LAUNCHES, SHARD_LAUNCHES
     LAUNCHES += 1
+    if start_limit is not None:
+        SHARD_LAUNCHES += 1
     return counts, mask
 
 
 def scan_count(staged, *, patterns: tuple[bytes, ...], case_sensitive: bool = True,
-               whole_word: bool = False, want_mask: bool = False):
+               whole_word: bool = False, want_mask: bool = False,
+               start_limit: int | None = None, prev_flag: int = 0):
     """ALL-overlap count of 1..MXU_MAX_PASS patterns over a freshly staged
     text (dispatch.StagedText). Returns device tensors (total, mask,
     group_counts): the int64 total, the u8 0/1 union start mask (None
     unless want_mask) and the per-64 KiB counts. Members must be
     1..MAX_LEN_LONG NUL-free bytes: with zeros past true_len, a window that
-    crosses it can then never match, so no start bound is needed."""
+    crosses it can then never match, so no bound at the text's end is
+    needed. `start_limit` and `prev_flag` as for hamming_scan (the
+    arguments of mxu_multi.scan_count)."""
     if not 1 <= len(patterns) <= MXU_MAX_PASS or any(
         not 0 < len(p) <= MAX_LEN_LONG or 0 in p for p in patterns
     ):
@@ -300,6 +324,6 @@ def scan_count(staged, *, patterns: tuple[bytes, ...], case_sensitive: bool = Tr
     tables = device_tables(build_tables(patterns, case_sensitive, whole_word), staged.u8.device)
     counts, mask = hamming_scan(
         staged.u8, staged.n_blocks, tables, case_sensitive=case_sensitive,
-        want_mask=want_mask,
+        want_mask=want_mask, start_limit=start_limit, prev_flag=prev_flag,
     )
     return counts.sum(), mask, counts

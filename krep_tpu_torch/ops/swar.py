@@ -11,7 +11,9 @@ Port of krep_tpu/ops/pallas_swar.py (`scan_literal`, `scan_shard`,
   first_line_fixup   one thread per block: finishes a first-in-line mask
                      across block edges from the block summaries;
   scan_blocks_multi  the same for up to 64 patterns in one pass: the summed
-                     match count, and the union mask and line state;
+                     match count, and the union mask and line state, with
+                     the shard stats of `scan_shard_multi` (start_limit,
+                     prev_word) for the sharded route (parallel/mesh.py);
   lines_blocks       the same summaries from a precomputed 0/1 start mask;
   combine_blocks     one block that folds the summaries in text order into
                      the match count, the matched-line count and the shard
@@ -22,8 +24,9 @@ tensor it runs the kernel's plain PyTorch version (literal.block_stats,
 lines.first_line_fixup, literal.block_stats_multi,
 literal.lines_block_stats, lines.combine_block_stats). `LAUNCHES`
 (`FIRST_LINE_LAUNCHES` of them with mask_kind="first_line"),
-`FIXUP_LAUNCHES`, `MULTI_LAUNCHES`, `LINES_LAUNCHES` and `COMBINE_LAUNCHES`
-count kernel launches, so a run can show that it went through the kernels.
+`FIXUP_LAUNCHES`, `MULTI_LAUNCHES` (`MULTI_SHARD_LAUNCHES` of them in the
+shard mode), `LINES_LAUNCHES` and `COMBINE_LAUNCHES` count kernel launches,
+so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ LAUNCHES = 0
 FIRST_LINE_LAUNCHES = 0
 FIXUP_LAUNCHES = 0
 MULTI_LAUNCHES = 0
+MULTI_SHARD_LAUNCHES = 0
 LINES_LAUNCHES = 0
 COMBINE_LAUNCHES = 0
 
@@ -68,6 +72,14 @@ def _check_text(text: torch.Tensor, n_blocks: int, tail: int) -> int:
     if body > (1 << 31):
         raise ValueError("staged arrays are limited to 2 GiB of body")
     return body
+
+
+def _check_true_len(true_len: int, body: int, start_limit: int | None) -> None:
+    """Starts lie in the body. Matches may end in the tail (a shard's
+    halo) only where a start_limit within the body bounds the starts."""
+    tail = TAIL_BYTES if start_limit is not None and start_limit <= body else 0
+    if true_len > body + tail:
+        raise ValueError("true_len lies past the staged body")
 
 
 def scan_blocks(
@@ -101,8 +113,7 @@ def scan_blocks(
     if first_line and not want_mask:
         raise ValueError('mask_kind="first_line" needs want_mask')
     body = _check_text(text, n_blocks, TAIL_BYTES)
-    if true_len > body:
-        raise ValueError("true_len lies past the staged body")
+    _check_true_len(true_len, body, start_limit)
     if _device_kind(text) == "cpu":
         return literal.block_stats(
             text, true_len, n_blocks, pattern=pattern,
@@ -197,24 +208,29 @@ def scan_blocks_multi(
     patterns: tuple[bytes, ...],
     case_sensitive: bool = True,
     whole_word: bool = False,
+    prev_word: int = 0,
+    start_limit: int | None = None,
     want_mask: bool = False,
 ):
     """Per-64 KiB-block summaries (n_blocks, 8) int32 of
     [matches, first, trail, lead, has_nl, 0, 0, 0] of up to 64 patterns in
     one pass — matches summed over the patterns (the Aho-Corasick count),
     the line fields over the union of their starts — and the u8 0/1 union
-    start mask (None unless want_mask). `text` as for scan_blocks."""
+    start mask (None unless want_mask). `text` as for scan_blocks. With a
+    `start_limit` (the shard mode, `MULTI_SHARD_LAUNCHES`), starts and the
+    newlines that count lie below it; `prev_word` is the -w flag of the
+    byte before the text (see literal.block_stats_multi)."""
     if not 1 <= len(patterns) <= MAX_PATTERNS:
         raise ValueError(f"{len(patterns)} patterns outside 1..{MAX_PATTERNS}")
     if any(not 1 <= len(p) <= MAX_PATTERN for p in patterns):
         raise ValueError(f"pattern length outside 1..{MAX_PATTERN}")
     body = _check_text(text, n_blocks, TAIL_BYTES)
-    if true_len > body:
-        raise ValueError("true_len lies past the staged body")
+    _check_true_len(true_len, body, start_limit)
     if _device_kind(text) == "cpu":
         return literal.block_stats_multi(
             text, true_len, n_blocks, patterns=patterns,
-            case_sensitive=case_sensitive, whole_word=whole_word, want_mask=want_mask,
+            case_sensitive=case_sensitive, whole_word=whole_word,
+            prev_word=prev_word, start_limit=start_limit, want_mask=want_mask,
         )
 
     from . import _build
@@ -224,17 +240,21 @@ def scan_blocks_multi(
     pset = torch.from_numpy(_pattern_set(pats)).to(text.device)
     stats = torch.empty((n_blocks, STAT_WORDS), dtype=torch.int32, device=text.device)
     mask = torch.empty(body, dtype=torch.uint8, device=text.device) if want_mask else None
+    shard = start_limit is not None
     stream = torch.cuda.current_stream(text.device).cuda_stream
     with torch.cuda.device(text.device):
         err = _build.library().krep_scan_blocks_multi(
             text.data_ptr(), n_blocks, pset.data_ptr(), int(not case_sensitive),
-            int(whole_word), int(true_len),
+            int(whole_word), int(true_len), int(bool(prev_word)),
+            int(start_limit) if shard else NO_LIMIT, int(shard),
             None if mask is None else mask.data_ptr(), stats.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(f"scan_blocks_multi kernel launch failed: CUDA error {err}")
-    global MULTI_LAUNCHES
+    global MULTI_LAUNCHES, MULTI_SHARD_LAUNCHES
     MULTI_LAUNCHES += 1
+    if shard:
+        MULTI_SHARD_LAUNCHES += 1
     return stats, mask
 
 

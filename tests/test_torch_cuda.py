@@ -6,6 +6,8 @@ jax, so it also runs where jax is absent:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import io
+
 import numpy as np
 import pytest
 import torch
@@ -305,3 +307,102 @@ def test_recursive_on_card_matches_cpu(cuda_device, tmp_path, args, monkeypatch)
         rc = cli.main([*args, str(tmp_path)], out=out, device=dev)
         outs.append((out.getvalue(), rc))
     assert outs[0] == outs[1] and outs[0][1] == 0
+
+
+SHARD_LIMITS = [0, 2 * 65536 - 2, 2 * 65536 - 1, 299_995]  # "the" starts at 2 * 65536 - 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patterns", MULTI_SETS, ids=["K1", "K3", "K64"])
+def test_shard_modes_match_plain(cuda_device, patterns):
+    """The K-pattern scan's and the Hamming kernel's shard modes
+    (start_limit, prev_word / prev_flag) against their plain versions,
+    exactly: limits that cut a match at a block edge, an empty shard, and
+    matches that end past the limit (true_len up to limit + m - 1)."""
+    text = edge_text(5, 300_000)
+    st = dispatch.stage(text, cuda_device)
+    m_max = max(map(len, patterns))
+    for limit in SHARD_LIMITS:
+        tl = min(limit + m_max - 1, len(text))
+        for cs, ww in [(True, False), (False, True)]:
+            for prev in (0, 1):
+                before = (swar.MULTI_SHARD_LAUNCHES, mxu.SHARD_LAUNCHES)
+                kw = dict(patterns=patterns, case_sensitive=cs, whole_word=ww, prev_word=prev,
+                          start_limit=limit, want_mask=True)
+                stats, mask = swar.scan_blocks_multi(st.u8, tl, st.n_blocks, **kw)
+                pstats, pmask = literal.block_stats_multi(st.u8, tl, st.n_blocks, **kw)
+                assert torch.equal(stats, pstats) and torch.equal(mask, pmask)
+                assert not mask[limit:].any()
+                tables = mxu.device_tables(mxu.build_tables(patterns, cs, ww), cuda_device)
+                hk = dict(case_sensitive=cs, want_mask=True, start_limit=limit, prev_flag=prev)
+                counts, hmask = mxu.hamming_scan(st.u8, st.n_blocks, tables, **hk)
+                pcounts, phmask = mxu.hamming_scan_plain(st.u8, st.n_blocks, tables, **hk)
+                assert torch.equal(counts, pcounts) and torch.equal(hmask, phmask)
+                assert torch.equal(counts, stats[:, 0]) and torch.equal(hmask, mask)
+                assert (swar.MULTI_SHARD_LAUNCHES, mxu.SHARD_LAUNCHES) == (before[0] + 1,
+                                                                          before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [3, 8])
+def test_sharded_route_on_card_matches_cpu(cuda_device, n_shards):
+    """parallel.mesh on a repeated-device mesh of the card against the same
+    route on a CPU mesh (the kernels' plain versions): totals, lines and
+    starts of one literal and of K=3, -w, and the Hamming count."""
+    from krep_tpu_torch.parallel import mesh
+
+    text = np.frombuffer(edge_text(11, 700_000), np.uint8)
+    meshes = ((cuda_device,) * n_shards, (torch.device("cpu"),) * n_shards)
+    for pats in [(b"the",), (b"the", b"he x", b"\nt")]:
+        for ww in (False, True):
+            got, want = (mesh.sharded_scan(text, pats, whole_word=ww, want_mask=True, mesh=m)
+                         for m in meshes)
+            assert got[:2] == want[:2] and got[2].tolist() == want[2].tolist()
+    pats = MULTI_SETS[2]
+    for ww in (False, True):
+        assert len({mesh.sharded_count(text, pats, whole_word=ww, mesh=m) for m in meshes}) == 1
+
+
+@pytest.mark.cuda
+def test_real_mesh_matches_one_card(cuda_device, monkeypatch, tmp_path):
+    """On a machine with several cards the engine shards on its own: with
+    -t unset over every card, with -t 2 over two, and each result equals
+    -t 1 (one card) on every route: one literal, three literals, the
+    Hamming count, K > 64 groups, a pattern over 64 bytes; and a -r walk
+    whose solo file shards."""
+    from krep_tpu_torch import cli
+    from krep_tpu_torch.io import batch
+    from krep_tpu_torch.parallel import mesh
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs more than one CUDA device")
+    monkeypatch.setenv("KREP_TPU_HOST_BREAKEVEN", "0")
+    staged = []
+    real = mesh.stage_shards
+    monkeypatch.setattr(mesh, "stage_shards",
+                        lambda data, m: staged.append(tuple(m)) or real(data, m))
+    text = naive.gen_english(33, 3_000_000)
+    words = sorted(set(text.split()))
+    long_pat = text[1_000_000:1_000_080]
+    for pats in [(b"the",), (b"the", b"fox", b"Holmes"), tuple(words[:40]),
+                 tuple(words[:30]) + tuple(w + b"s" for w in words[:40]), (long_pat,)]:
+        for kw in MULTI_MODES:
+            p = SearchParams(patterns=pats, **kw)
+            want = search_string(p, text, threads=1, device=cuda_device)
+            for t in (None, 2):
+                got = search_string(p, text, threads=t, device=cuda_device)
+                assert (got.count, got.positions.tolist()) == (want.count, want.positions.tolist())
+    assert {len(m) for m in staged} == {n_cards, 2}
+    assert all(len(set(m)) == len(m) for m in staged)  # distinct cards
+    (tmp_path / "solo.txt").write_bytes(text[: batch.BATCH_FILE_MAX + 70_000])
+    (tmp_path / "small.txt").write_bytes(text[:5000])
+    staged.clear()
+    for args in (["-r", "-c", "the"], ["-r", "-o", "-e", "the", "-e", "fox"]):
+        outs = []
+        for t in ([], ["-t", "1"]):
+            out = io.BytesIO()
+            outs.append((cli.main([*t, *args, str(tmp_path)], out=out, device=cuda_device),
+                         out.getvalue()))
+        assert outs[0] == outs[1] and outs[0][0] == 0
+    assert staged and {len(m) for m in staged} == {n_cards}

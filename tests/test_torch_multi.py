@@ -434,11 +434,23 @@ def test_grouped_count_stops_at_max_count(monkeypatch):
     assert len(calls) == 1  # the first group of 64 reached the cap
 
 
-def test_multi_gpu_route_not_ported(monkeypatch):
+def test_multi_gpu_route_shards(monkeypatch):
+    """With two CUDA devices, search_multi takes the sharded route
+    (mesh.sharded_scan), here over two CPU shards through the mesh seam,
+    and equals krep_tpu, which shards over its virtual devices."""
+    from krep_tpu_torch.parallel import mesh
+
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        multi.search_multi(SearchParams(patterns=(b"a", b"b")), TEXT, (b"a", b"b"),
-                           torch.device("cuda", 0))
+    monkeypatch.setattr(mesh, "devices", lambda device: (CPU, CPU))
+    calls = []
+    real = mesh.sharded_scan
+    monkeypatch.setattr(mesh, "sharded_scan", lambda *a, **k: calls.append(k["mesh"]) or real(*a, **k))
+    patterns = (b"the", b"fox", b"he q")
+    for mode in ("o", "c"):
+        p = SearchParams(patterns=patterns, **MODES[mode])
+        got = multi.search_multi(p, TEXT, patterns, torch.device("cuda", 0))
+        same(got, krep_tpu.search_string(jax_params(p), TEXT))
+    assert calls == [(CPU, CPU)] * 2
 
 
 def run(main, argv, stdin=b"", **kw):
