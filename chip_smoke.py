@@ -103,6 +103,39 @@ The sharded slice (parallel/mesh.py, -t) adds:
                shard of the 1 GiB corpus: 4,096 blocks + the halo) against
                their plain versions, exactly, then timed with CUDA events
                beside their bounds, the Hamming mode beside torch._int_mm.
+The last three TPU kernels (the byte scan of KREP_TPU_BACKEND=pallas, its
+cost-attribution variants, the Hamming kernel's want_lines and strict) add:
+  3v. kernels — the byte scan against its plain version, exactly, at 64 MiB
+               of text with long lines: count, lines and mask, with and
+               without -i and -w, for pattern lengths 1, 3, 5, 17, 64, 65,
+               1000 and 4096, the long ones planted across block edges,
+               after "_^" and at the end; then the four variants;
+  3h. kernels — the Hamming kernel's line mode (the 64 variants, the mixed
+               set, -w, -i, a '\\n'-leading set) and strict mode (with_len
+               views n - 0, 1, 17, 4095 of a buffer with live text past
+               them, with and without -w) against their plain versions,
+               exactly, at 64 MiB;
+  4v. main path — the CLI under KREP_TPU_BACKEND=pallas: `-c the` and
+               `-c -i -w the` on 1 GiB, `-o the`, line mode and `-c -o` with
+               a 70-byte pattern on 64 MiB, `-r -o the` and `-r -c -o the`
+               on part0, each byte-identical to the native host route; the
+               byte scan (with and without a mask) must have launched;
+  4b. main path — `python -m krep_tpu_torch.tools.bench_kernel` as a user
+               runs it (256 MiB): each variant equal to its plain version;
+  4h. main path — the CLI under KREP_TPU_MXU_LINES=inkernel: `-c -f` with
+               the 64 variants and `-c` / `-w -c` with the mixed set on
+               1 GiB, each equal to the default route's output, and `-c -f`
+               with the 64 variants on 16 MiB byte-identical to the native
+               host route; the line mode must have launched and the lines
+               kernel not;
+  4s. main path — bench.py's strict counts (fused_count_device(strict=True)
+               on the 1 GiB staging and its with_len views), each equal to
+               the -c -o count of phase 4+ adjusted at the new end;
+  5v/5h. shapes — at 1 GiB, the byte scan (with and without a mask), the
+               variants and both Hamming modes exact against plain, then
+               timed beside their bounds, the chained pair (mask instance +
+               lines_blocks), the count instance, torch.sum and
+               torch._int_mm.
 It then prints one JSON line of kernels and, last, the result line. It
 exits non-zero, with no result line, when any phase fails or no card is
 available. Imports nothing of jax.
@@ -110,6 +143,7 @@ available. Imports nothing of jax.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
@@ -405,16 +439,18 @@ def reference_clis(arg_lists: list[list[str]], jobs: int = 4) -> list[tuple[byte
 
 
 def reset_launches() -> None:
-    from krep_tpu_torch.ops import mxu, swar
+    from krep_tpu_torch.ops import bytescan, mxu, swar
 
     swar.LAUNCHES = swar.COMBINE_LAUNCHES = swar.MULTI_LAUNCHES = swar.LINES_LAUNCHES = 0
     swar.FIRST_LINE_LAUNCHES = swar.FIXUP_LAUNCHES = swar.MULTI_SHARD_LAUNCHES = 0
-    mxu.LAUNCHES = mxu.SHARD_LAUNCHES = 0
+    mxu.LAUNCHES = mxu.SHARD_LAUNCHES = mxu.LINES_LAUNCHES = mxu.STRICT_LAUNCHES = 0
+    bytescan.LAUNCHES = bytescan.MASK_LAUNCHES = 0
+    bytescan.VARIANT_LAUNCHES.update(dict.fromkeys(bytescan.VARIANTS, 0))
 
 
 def read_launches(*names: str) -> dict:
     """Launch counts of the named kernels (all of them by default)."""
-    from krep_tpu_torch.ops import mxu, swar
+    from krep_tpu_torch.ops import bytescan, mxu, swar
 
     counts = {"scan_blocks": swar.LAUNCHES, "combine_blocks": swar.COMBINE_LAUNCHES,
               "scan_blocks first_line": swar.FIRST_LINE_LAUNCHES,
@@ -422,8 +458,63 @@ def read_launches(*names: str) -> dict:
               "scan_blocks_multi": swar.MULTI_LAUNCHES, "lines_blocks": swar.LINES_LAUNCHES,
               "hamming_scan": mxu.LAUNCHES,
               "scan_blocks_multi shard": swar.MULTI_SHARD_LAUNCHES,
-              "hamming_scan shard": mxu.SHARD_LAUNCHES}
+              "hamming_scan shard": mxu.SHARD_LAUNCHES,
+              "scan_bytes": bytescan.LAUNCHES, "scan_bytes mask": bytescan.MASK_LAUNCHES,
+              **{f"bench_kernel {v}": n for v, n in bytescan.VARIANT_LAUNCHES.items()},
+              "hamming_scan lines": mxu.LINES_LAUNCHES,
+              "hamming_scan strict": mxu.STRICT_LAUNCHES}
     return {k: counts[k] for k in names or counts}
+
+
+@contextlib.contextmanager
+def env_set(name: str, value: str):
+    """$name = value inside the block, restored after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def plant(text: np.ndarray, at: int, piece: bytes) -> None:
+    """`piece` written into `text` at `at`, cut at the text's end."""
+    piece = piece[: len(text) - at]
+    text[at : at + len(piece)] = np.frombuffer(piece, np.uint8)
+
+
+def tail_adjusted_count(text: np.ndarray, n: int, j: int, patterns, whole_word: bool) -> int:
+    """How the ALL count of `patterns` over text[:n] changes when the text
+    ends at n - j instead: the starts near the end counted over text[:n - j]
+    minus those counted over text[:n], in the last 4,200 bytes before n - j
+    (each region read from one byte earlier, for the -w before-byte)."""
+    a = n - j - 4200
+
+    def near_end(end):
+        region = bytes(text[a - 1 : end])
+        return sum(sum(1 for s in naive_starts(region, p, whole_word) if s >= 1)
+                   for p in patterns)
+
+    return near_end(n - j) - near_end(n)
+
+
+def naive_starts(text: bytes, pattern: bytes, whole_word: bool) -> list[int]:
+    """Every start of `pattern` in `text` (with -w, word-bounded, the text's
+    edges counting as boundaries), by bytes.find."""
+    out, i, m = [], text.find(pattern), len(pattern)
+
+    def word(c):
+        return c == 95 or 48 <= c <= 57 or 65 <= c <= 90 or 97 <= c <= 122
+
+    while i >= 0:
+        if not whole_word or ((i == 0 or not word(text[i - 1]))
+                              and (i + m >= len(text) or not word(text[i + m]))):
+            out.append(i)
+        i = text.find(pattern, i + 1)
+    return out
 
 
 def multi_kernels_vs_plain(st, max_err, say_prefix: str, *, patterns, case_sensitive,
@@ -740,6 +831,112 @@ def main() -> int:
         say(f"shard modes vs plain at 64 MiB: {n_shard} cases, all exact")
         del st, stext
 
+        # 3v. the byte scan (KREP_TPU_BACKEND=pallas) against its plain
+        # version at 64 MiB, exactly: pattern lengths 1..4096, each long one
+        # planted across 64 KiB block edges, after "_^" and at the end, on
+        # text with long lines (lines that span blocks); then its four
+        # cost-attribution variants against theirs
+        from krep_tpu_torch.ops import bytescan
+
+        vtext = long_lines(text, seed=13)
+        line_start = int(np.flatnonzero(vtext[3000:] == 10)[5]) + 3001
+        max_err.update({"scan_bytes": 0, "scan_bytes mask": 0})
+        vpats = {}
+        for i, m in enumerate((1, 3, 5, 17, 64, 65, 1000, 4096)):
+            pat = {1: b"e", 3: b"the", 5: b"quick"}.get(m) or bytes(vtext[line_start : line_start + m])
+            vpats[m] = pat
+            if m > 5:  # each length at its own blocks; the longest last at the end
+                for k in (3, 100, 500, 1000):
+                    plant(vtext, (k + 3 * i) * 65536 - m // 2, b" " + pat + b" ")
+                plant(vtext, (700 + 3 * i) * 65536 + 999, b"_^" + pat + b" ")
+                plant(vtext, MIB64 - m - 1, b" " + pat)
+        long70 = b" ".join(WORDS)[:70]
+        for at in range(1 << 20, MIB64 - (1 << 20), 5 << 20):
+            plant(vtext, at - 35, long70)  # some across block edges
+        st = dispatch.stage(vtext, dev)
+        n_v = 0
+        for m, pat in vpats.items():
+            got = []
+            for cs in (True, False):
+                for ww in (False, True):
+                    for want_mask in (False, True):
+                        kw = dict(pattern=pat, case_sensitive=cs, whole_word=ww,
+                                  want_mask=want_mask)
+                        stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, st.n_blocks,
+                                                                 **kw)
+                        pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len,
+                                                                   st.n_blocks, **kw)
+                        err = int((stats - pstats).abs().max())
+                        if want_mask:
+                            err = max(err, int((mask != pmask).any()))
+                        name = "scan_bytes mask" if want_mask else "scan_bytes"
+                        max_err[name] = max(max_err[name], err)
+                        n_v += 1
+                    tot = swar.combine_blocks(stats)
+                    got.append(tot[:2].tolist())
+            check(m <= 5 or got[0][0] >= 5, f"the plants of m={m} did not match: {got}")
+            say(f"byte scan vs plain: m={m} exact; [matches, lines] for (cs, -w, -i, -i -w): {got}")
+        max_err.update({f"bench_kernel {v}": 0 for v in bytescan.VARIANTS})
+        for v in bytescan.VARIANTS:
+            stats = bytescan.scan_variant(st.u8, st.true_len, st.n_blocks, mode=v)
+            pstats = bytescan.variant_stats_plain(st.u8, st.true_len, st.n_blocks, mode=v)
+            max_err[f"bench_kernel {v}"] = int((stats - pstats).abs().max())
+            say(f"variant vs plain at 64 MiB: {v}: {swar.combine_blocks(stats)[:2].tolist()}")
+        torch.cuda.synchronize()
+        check(all(max_err[k] == 0 for k in max_err if k.startswith(("scan_bytes", "bench_kernel"))),
+              f"byte scan != plain: {max_err}")
+        say(f"byte scan vs plain at 64 MiB: {n_v} cases and 4 variants, all exact")
+        vpath = os.path.join(workdir, "plants_64m.txt")
+        vtext.tofile(vpath)
+        del st, stats, mask, pstats, pmask, vtext
+
+        # 3h. the Hamming kernel's line mode and strict mode against their
+        # plain versions at 64 MiB: lines on the 64 variants, the mixed set,
+        # -w, -i and a '\n'-leading set (plain: literal.lines_block_stats of
+        # the plain union mask); strict on with_len(n - j) views of a buffer
+        # whose bytes past n - j are live text, with members planted to end
+        # at and to cross n - j
+        htext = text.copy()
+        for j in (4095, 17, 1, 0):  # the nearer ends last: their plants stay whole
+            plant(htext, MIB64 - j - 60, b" " + pats_mixed[0] + b" ")
+            plant(htext, MIB64 - j - len(pats64[3]), pats64[3])                 # ends at n - j
+            plant(htext, MIB64 - j - 4, b" " + pats_mixed[1] + b" " + pats64[5])  # crosses n - j
+        st = dispatch.stage(htext, dev)
+        max_err.update({"hamming_scan lines": 0, "hamming_scan strict": 0})
+        nl_set = pats64[:62] + (b"\nthe", b"e\nt")
+        for pats, cs, ww in ((pats64, True, False), (pats_mixed, True, False),
+                             (pats_mixed, True, True), (pats64, False, False),
+                             (nl_set, True, False)):
+            tables = mxu.device_tables(mxu.build_tables(pats, cs, ww), dev)
+            stats, _ = mxu.hamming_scan(st.u8, st.n_blocks, tables, case_sensitive=cs,
+                                        want_lines=True)
+            pstats, _ = mxu.hamming_scan_plain(st.u8, st.n_blocks, tables, case_sensitive=cs,
+                                               want_lines=True)
+            err = int((stats - pstats).abs().max())
+            max_err["hamming_scan lines"] = max(max_err["hamming_scan lines"], err)
+            say(f"Hamming lines vs plain at 64 MiB: K={len(pats)} cs={cs} -w={ww}: "
+                f"[matches, lines] {swar.combine_blocks(stats)[:2].tolist()}, error {err}")
+        for pats in (pats64, pats_mixed):
+            for ww in (False, True):
+                tables = mxu.device_tables(mxu.build_tables(pats, True, ww), dev)
+                got = []
+                for j in (0, 1, 17, 4095):
+                    view = st.with_len(MIB64 - j)
+                    kw = dict(want_mask=True, strict=True, true_len=view.true_len)
+                    counts, mask = mxu.hamming_scan(view.u8, view.n_blocks, tables, **kw)
+                    pcounts, pmask = mxu.hamming_scan_plain(view.u8, view.n_blocks, tables, **kw)
+                    err = max(int((counts - pcounts).abs().max()), int((mask != pmask).any()))
+                    max_err["hamming_scan strict"] = max(max_err["hamming_scan strict"], err)
+                    got.append(int(counts.sum()))
+                say(f"Hamming strict vs plain at 64 MiB: K={len(pats)} -w={ww}: counts of the "
+                    f"views n - (0, 1, 17, 4095): {got}")
+                check(len(set(got)) > 1, "strict: the views' ends changed no count")
+        torch.cuda.synchronize()
+        check(max_err["hamming_scan lines"] == 0 and max_err["hamming_scan strict"] == 0,
+              f"Hamming modes != plain: {max_err}")
+        say("Hamming line and strict modes vs plain at 64 MiB: 21 cases, all exact")
+        del st, htext, stats, pstats, counts, mask, pcounts, pmask
+
         # 4. main path through the CLI, held to the native host route.
         # First the 1 GiB bucket's pinned host buffer, cold (the first in the
         # process at that size) and warm (from the caching host allocator),
@@ -971,7 +1168,68 @@ def main() -> int:
         check(all(v > 0 for v in first_rc.values()), f"-r -c did not run first_line: {first_rc}")
         check(all(v > 0 for v in rlaunches.values()), f"a kernel never launched: {rlaunches}")
         launches.update({k: rlaunches[k] for k in ("scan_blocks first_line", "first_line_fixup")})
-        del r_outs, r_refs, c5_outs
+        del r_outs, c5_outs
+
+        # 4v. KREP_TPU_BACKEND=pallas: the byte scan on the single-array
+        # route, the prefix filter and the -r position and -c -o batches,
+        # each run byte-identical to the native host route
+        v_runs = [  # (arguments, bytes searched, the reference's output)
+            (["-c", "the", big], GIB, refs[0]),
+            (["-c", "-i", "-w", "the", big], GIB, refs[2]),
+            (["-o", "the", small], MIB64, refs[4]),
+            (["the", small], MIB64, refs[5]),
+            (["-r", "-o", "the", part0], tree_info["part0_bytes"], r_refs[3]),
+        ]
+        new_refs = reference_clis([["-c", "-o", long70.decode(), vpath],
+                                   ["-r", "-c", "-o", "the", part0]])
+        v_runs += [(["-c", "-o", long70.decode(), vpath], MIB64, new_refs[0]),
+                   (["-r", "-c", "-o", "the", part0], tree_info["part0_bytes"], new_refs[1])]
+        with env_set("KREP_TPU_BACKEND", "pallas"):
+            reset_launches()
+            v_outs = [port_cli(args) for args, _, _ in v_runs]
+            vlaunches = read_launches("scan_bytes", "scan_bytes mask", "combine_blocks")
+        for (args, nbytes, ref), got in zip(v_runs, v_outs):
+            check_identical(args, nbytes, got, ref)
+        say(f"launches under KREP_TPU_BACKEND=pallas: {vlaunches}")
+        check(all(v > 0 for v in vlaunches.values()), f"the byte scan never launched: {vlaunches}")
+        launches.update({k: vlaunches[k] for k in ("scan_bytes", "scan_bytes mask")})
+        del v_outs, r_refs
+
+        # 4b. the cost-attribution tool, as a user runs it
+        # (python -m krep_tpu_torch.tools.bench_kernel, 256 MiB of a-z)
+        from krep_tpu_torch.tools import bench_kernel
+
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = bench_kernel.main([])
+        blaunches = read_launches(*(f"bench_kernel {v}" for v in bytescan.VARIANTS))
+        say(f"bench_kernel: rc={rc}, {time.perf_counter() - t0:.1f} s, launches {blaunches} [{card}]")
+        check(rc == 0, "bench_kernel: a variant differs from its plain version")
+        check(all(v > 0 for v in blaunches.values()), f"a variant never launched: {blaunches}")
+        launches.update(blaunches)
+
+        # 4h. KREP_TPU_MXU_LINES=inkernel: multi-pattern -c counts its lines in
+        # the Hamming kernel; each count equal to the default (chained)
+        # route's, and on 16 MiB byte-identical to the native host route
+        h_runs = [["-c", "-f", f64, big], ["-c", "-f", fmixed, big], ["-w", "-c", "-f", fmixed, big]]
+        h_small = ["-c", "-f", f64, mid]
+        h_ref = reference_cli(h_small)
+        h_default = [port_cli(h_runs[0]), big_outs[5], port_cli(h_runs[2])]
+        with env_set("KREP_TPU_MXU_LINES", "inkernel"):
+            reset_launches()
+            h_outs = [port_cli(args) for args in h_runs + [h_small]]
+            hlaunches = read_launches("hamming_scan lines", "lines_blocks", "combine_blocks")
+        for args, got, want in zip(h_runs, h_outs, h_default):
+            same = got[:2] == want[:2]
+            say(f"main path: krep {label_of(args)} (inkernel lines): {got[0]!r} rc={got[1]} "
+                f"{got[2]:.3f} s | default route {want[0]!r} {want[2]:.3f} s | equal={same} [{card}]")
+            check(same, f"inkernel lines differ from the chained route for {label_of(args)}")
+        check_identical(h_small, MIB16, h_outs[3], h_ref)
+        say(f"launches under KREP_TPU_MXU_LINES=inkernel: {hlaunches}")
+        check(hlaunches["hamming_scan lines"] == 4 and hlaunches["lines_blocks"] == 0,
+              f"the in-kernel line mode did not carry -c: {hlaunches}")
+        launches["hamming_scan lines"] = hlaunches["hamming_scan lines"]
+        del h_outs, h_default
 
         # 4m. the sharded route (parallel/mesh.py) through the port's own
         # entry points, search_string and the CLI, on this card named four
@@ -1224,6 +1482,133 @@ def main() -> int:
         say(f"library yardstick: torch._int_mm of the Hamming kernel's G (64 variants, "
             f"{tuple(g1.shape)}) against the window-bit features of 1 GiB, in 4 Mi-word "
             f"chunks: {library['hamming_scan']:.4f} ms [{card}]")
+
+        # 4s. the bench's strict count (bench.py:397, :439, :468):
+        # multi.fused_count_device(staged, pats, True, ww, strict=True) on the
+        # 1 GiB staging and on with_len(n - j) views of it, whose bytes past
+        # n - j are live text; each equal to the -c -o count of phase 4+
+        # adjusted by the starts near the new end (counted on the host)
+        from krep_tpu_torch.ops import multi
+
+        s_cases = [(pats64, False, big_outs[2]), (pats_mixed, False, big_outs[3]),
+                   (pats_mixed, True, big_outs[4])]
+        ends = (0, 1, 17, 4095)
+        reset_launches()
+        s_got = [[multi.fused_count_device(st.with_len(GIB - j), pats, True, ww, strict=True)
+                  for j in ends] for pats, ww, _ in s_cases]
+        slaunches = read_launches("hamming_scan strict")
+        for (pats, ww, out), got in zip(s_cases, s_got):
+            full = int(out[0].rsplit(b":", 1)[-1])
+            want = [full + tail_adjusted_count(corpus, GIB, j, pats, ww) for j in ends]
+            say(f"bench strict count: K={len(pats)} -w={ww}, views n - {ends}: {got} | "
+                f"-c -o count adjusted at the end {want} | equal={got == want}")
+            check(got == want, f"strict counts differ: {got} != {want}")
+        say(f"launches during the strict counts: {slaunches}")
+        check(slaunches["hamming_scan strict"] == 12, f"strict launches: {slaunches}")
+        launches.update(slaunches)
+
+        # 5v. the byte scan (both instances) and its variants at the 1 GiB
+        # `-c the` shape: exact against plain, then timed
+        for want_mask in (False, True):
+            kw = dict(pattern=b"the", want_mask=want_mask)
+            stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, n_blk, **kw)
+            pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len, n_blk, **kw)
+            err = int((stats - pstats).abs().max())
+            if want_mask:
+                err = max(err, int((mask != pmask).any()))
+            name = "scan_bytes mask" if want_mask else "scan_bytes"
+            max_err[name] = max(max_err[name], err)
+            say(f"byte scan vs plain at 1 GiB, mask={want_mask}: "
+                f"{swar.combine_blocks(stats)[:5].tolist()}, error {err}")
+        del stats, mask, pstats, pmask
+        for v in bytescan.VARIANTS:
+            got = bytescan.scan_variant(st.u8, st.true_len, n_blk, mode=v)
+            want = bytescan.variant_stats_plain(st.u8, st.true_len, n_blk, mode=v)
+            err = int((got - want).abs().max())
+            max_err[f"bench_kernel {v}"] = max(max_err[f"bench_kernel {v}"], err)
+            say(f"variant vs plain at 1 GiB: {v}: {swar.combine_blocks(got)[:2].tolist()}, "
+                f"error {err}")
+        check(all(max_err[k] == 0 for k in max_err if k.startswith(("scan_bytes", "bench_kernel"))),
+              f"byte scan != plain at 1 GiB: {max_err}")
+
+        def byte_scan(**kw):
+            return lambda: bytescan.scan_blocks_bytes(st.u8, st.true_len, n_blk, pattern=b"the",
+                                                      **kw)
+
+        def byte_plain(**kw):
+            return lambda: bytescan.block_stats_bytes(st.u8, st.true_len, n_blk, pattern=b"the",
+                                                      **kw)
+
+        vtiming = {
+            "scan_bytes": (cuda_ms(byte_scan(), 20), cuda_ms(byte_plain(), 3)),
+            "scan_bytes mask": (cuda_ms(byte_scan(want_mask=True), 20),
+                                cuda_ms(byte_plain(want_mask=True), 3)),
+        }
+        for v in bytescan.VARIANTS:
+            vtiming[f"bench_kernel {v}"] = (
+                cuda_ms(lambda: bytescan.scan_variant(st.u8, st.true_len, n_blk, mode=v), 20),
+                cuda_ms(lambda: bytescan.variant_stats_plain(st.u8, st.true_len, n_blk, mode=v), 3),
+            )
+        swar_mask_ms = cuda_ms(lambda: swar.scan_blocks(st.u8, st.true_len, n_blk, pattern=b"the",
+                                                        want_mask=True), 20)
+        library["bench_kernel passthrough"] = cuda_ms(
+            lambda: torch.sum(st.u8[:body], dtype=torch.int32), 20)
+        read_bound = bound(body + bytescan.HALO_BYTES + 32 * n_blk)
+        bounds.update({
+            "scan_bytes": read_bound,
+            "scan_bytes mask": bound(2 * body + bytescan.HALO_BYTES + 32 * n_blk),
+            "bench_kernel passthrough": bound(body + 32 * n_blk),
+            **{f"bench_kernel {v}": read_bound for v in bytescan.VARIANTS[1:]},
+        })
+        for name, (k_ms, p_ms) in vtiming.items():
+            say(f"timing 1 GiB -c the: {name} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
+        say(f"timing 1 GiB -c the: the SWAR scan with a mask {swar_mask_ms:.4f} ms; "
+            f"torch.sum(text, dtype=torch.int32) {library['bench_kernel passthrough']:.4f} ms [{card}]")
+        timing.update(vtiming)
+
+        # 5h. the Hamming kernel's line and strict modes at 1 GiB: exact
+        # against plain, then timed beside the chained pair (the mask
+        # instance + lines_blocks), the count instance (re-timed) and
+        # torch._int_mm
+        view = st.with_len(GIB - 17)
+        for tables, label in ((t64, "64 variants"), (tmixed, "mixed")):
+            got, _ = mxu.hamming_scan(st.u8, n_blk, tables, want_lines=True)
+            want, _ = mxu.hamming_scan_plain(st.u8, n_blk, tables, want_lines=True)
+            err = int((got - want).abs().max())
+            max_err["hamming_scan lines"] = max(max_err["hamming_scan lines"], err)
+            skw = dict(strict=True, true_len=view.true_len, want_mask=True)
+            got, gmask = mxu.hamming_scan(view.u8, n_blk, tables, **skw)
+            want, wmask = mxu.hamming_scan_plain(view.u8, n_blk, tables, **skw)
+            serr = max(int((got - want).abs().max()), int((gmask != wmask).any()))
+            max_err["hamming_scan strict"] = max(max_err["hamming_scan strict"], serr)
+            say(f"Hamming modes vs plain at 1 GiB, {label}: lines error {err}, strict (n - 17) "
+                f"error {serr}")
+            del got, want, gmask, wmask
+        check(max_err["hamming_scan lines"] == 0 and max_err["hamming_scan strict"] == 0,
+              f"Hamming modes != plain at 1 GiB: {max_err}")
+        htiming = {}
+        for tables, label in ((t64, ""), (tmixed, " mixed")):
+            skw = dict(strict=True, true_len=view.true_len)
+            htiming["hamming_scan lines" + label] = (
+                cuda_ms(lambda: mxu.hamming_scan(st.u8, n_blk, tables, want_lines=True), 5),
+                cuda_ms(lambda: mxu.hamming_scan_plain(st.u8, n_blk, tables, want_lines=True), 1))
+            htiming["hamming_scan strict" + label] = (
+                cuda_ms(lambda: mxu.hamming_scan(view.u8, n_blk, tables, **skw), 5),
+                cuda_ms(lambda: mxu.hamming_scan_plain(view.u8, n_blk, tables, **skw), 1))
+            htiming["hamming_scan count" + label] = (
+                cuda_ms(lambda: mxu.hamming_scan(st.u8, n_blk, tables), 5), None)
+            htiming["chained mask + lines_blocks" + label] = (cuda_ms(lambda: swar.lines_blocks(
+                st.u8, mxu.hamming_scan(st.u8, n_blk, tables, want_mask=True)[1], n_blk), 5), None)
+        for name, (k_ms, p_ms) in htiming.items():
+            plain = "" if p_ms is None else f", plain {p_ms:.4f} ms"
+            say(f"timing 1 GiB multi-pattern: {name} {k_ms:.4f} ms{plain} [{card}]")
+        timing.update({k: htiming[k] for k in ("hamming_scan lines", "hamming_scan strict")})
+        bounds.update({k: bounds["hamming_scan"] for k in ("hamming_scan lines",
+                                                           "hamming_scan strict")})
+        library.update({k: library["hamming_scan"] for k in ("hamming_scan lines",
+                                                             "hamming_scan strict")})
+        del view
         del st, umask
 
         # 5r. the first_line kernels at the batch shapes: the walker's full
@@ -1372,6 +1757,12 @@ def main() -> int:
         "hamming_scan": ("hamming_scan.cu", "krep_tpu/ops/mxu_multi.py:209"),
         "scan_blocks_multi shard": ("multi_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
         "hamming_scan shard": ("hamming_scan.cu", "krep_tpu/ops/mxu_multi.py:209"),
+        "scan_bytes": ("byte_scan.cu", "krep_tpu/ops/pallas_scan.py:116"),
+        "scan_bytes mask": ("byte_scan.cu", "krep_tpu/ops/pallas_scan.py:116"),
+        **{f"bench_kernel {v}": ("byte_scan.cu", "tools/bench_kernel.py:23")
+           for v in ("passthrough", "compares_only", "lines_only", "full")},
+        "hamming_scan lines": ("hamming_scan.cu", "krep_tpu/ops/mxu_multi.py:209"),
+        "hamming_scan strict": ("hamming_scan.cu", "krep_tpu/ops/mxu_multi.py:209"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,

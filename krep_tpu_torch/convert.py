@@ -18,16 +18,20 @@ import numpy as np
 from .ops import dispatch, mxu
 
 
-def staged_from_reference(np_buffer: np.ndarray, n: int, device=None) -> dispatch.StagedText:
+def staged_from_reference(np_buffer: np.ndarray, n: int, device=None,
+                          true_len: int | None = None) -> dispatch.StagedText:
     """The port's StagedText over a copy of `np_buffer`, the JAX package's
-    padded staging bytes for an n-byte text."""
+    padded staging bytes for an n-byte text. With `true_len`, the port's
+    with_len(true_len) view of it, the twin of a JAX StagedText.with_len
+    view, whose bytes past true_len may be live text."""
     buf = np.asarray(np_buffer, dtype=np.uint8)
-    if buf.shape != (dispatch.bucket_size(n),) or buf[n:].any():
+    if buf.shape != (dispatch.bucket_size(n),) or (true_len is None and buf[n:].any()):
         raise ValueError("buffer is not a staged layout of n bytes with a zero tail")
     dev = dispatch.resolve_device(device)
     host = dispatch.host_buffer(buf.shape[0], dev)
     host.numpy()[:] = buf
-    return dispatch.StagedText(host, n, dev)
+    st = dispatch.StagedText(host, n, dev)
+    return st if true_len is None else st.with_len(true_len)
 
 
 def mxu_tables_from_reference(tables, device=None) -> mxu.HammingTables:

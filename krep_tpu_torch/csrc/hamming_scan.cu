@@ -2,10 +2,11 @@
 // (sm_90a), hand-written CUDA C++ with WMMA.
 //
 // Replaces the TPU kernel krep_tpu/ops/mxu_multi.py `_make_kernel` (built at
-// :209, pallas_call at :722 in `scan_count` :559) in its count and union-mask
-// modes (strict=False), with and without start_limit and prev_flag (the
-// per-shard count of parallel/mesh.py). The formulation is the
-// TPU kernel's: a match of pattern k at byte 4w+p (word w, phase p) is a
+// :209, pallas_call at :722 in `scan_count` :559) in all its modes: the count
+// and the union mask, with and without start_limit and prev_flag (the
+// per-shard count of parallel/mesh.py), the in-kernel line count
+// (`want_lines`) and the explicit start bound (`strict`). The formulation is
+// the TPU kernel's: a match of pattern k at byte 4w+p (word w, phase p) is a
 // Hamming distance of zero between the pattern and the bits of the window
 // at word w, and with the text's bits as features W[(j,b), w] = bit b of
 // byte 4w+j and weights G[(p,k), (j,b)] = 1 - 2 * pattern bit, the distance
@@ -49,6 +50,23 @@
 // compares starts. prev_flag is the -w flag of the byte before the text
 // (the previous shard's last byte), the before-feature of word 0.
 //
+// Two more modes are template instances, so the count and mask instances
+// compile as before (a run-time mode flag had cost the K=1 scan 18 %):
+//   * kLines (`want_lines`, mxu_multi.py:502-528): no mask; the tile's union
+//     flags and the newlines of the tile already in shared memory give a
+//     line-accounting summary of its 1 KiB (each thread walks its word's 4
+//     bytes, the 256 walks fold in order). The TPU kernel carries the line
+//     state across its sequential grid in SMEM; here the 64 tiles of a block
+//     run in order inside it, so thread 0 folds each tile's summary into the
+//     block's, and the block writes 8 stats words (the ALL count, then the
+//     union's first, trail, lead, has_nl) that combine_blocks folds across
+//     blocks. A flag on a '\n' counts the line it ends, as in lines_scan.cu.
+//   * kStrict (`strict`, mxu_multi.py:316-327, :436-447): the bytes past
+//     true_len may be live text (a with_len view), so a start of row k counts
+//     only when start + len(k) <= true_len (the pattern length rides the
+//     rows' fourth word), and -w reads no word flag at or past true_len. Both
+//     tests run only in the tiles whose windows reach true_len.
+//
 // Simple first: no wgmma, TMA or cp.async; a later version moves the
 // products to mma.sync / wgmma.
 
@@ -69,6 +87,8 @@ constexpr int kBoundaryCols = 48;            // -w feature rows (build_tables' B
 constexpr int kTileBytes = 4 * kTileWords + kTail;  // windows read up to 36 bytes past a word
 constexpr int kNoByte = -128;
 
+enum Mode { kCount = 0, kLines = 1, kStrict = 2 };  // kCount also writes the mask
+
 // Byte offset, relative to a word's first byte, whose is-word flag feeds
 // each -w feature row (kNoByte: a zero row).
 struct BoundaryOffsets {
@@ -87,13 +107,13 @@ __host__ __device__ constexpr int smem_bytes(int kt1, int kt2) {
          + 16 + kTileBytes;          // the byte before the tile, the tile, its tail
 }
 
-template <int KT1, int KT2>
+template <int KT1, int KT2, int M>
 __global__ void __launch_bounds__(kThreads)
 hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restrict__ g1,
                     const signed char* __restrict__ g2, const int4* __restrict__ rows,
                     int mtiles, int long_tile0, BoundaryOffsets bo, int icase,
-                    long long start_limit, int prev_flag, uint8_t* __restrict__ mask,
-                    int* __restrict__ counts) {
+                    long long start_limit, int prev_flag, long long true_len,
+                    uint8_t* __restrict__ mask, int* __restrict__ out) {
   extern __shared__ __align__(256) uint8_t sm[];
   signed char* w1 = reinterpret_cast<signed char*>(sm);
   signed char* w2 = w1 + KT1 * kNT * kFrag;
@@ -110,6 +130,7 @@ hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restr
   const int col = lane & 15;      // the D column (word) this lane compares
   const int r0 = (lane >> 4) * 8; // ... and its first of 8 rows
   int cnt = 0;
+  Summary line = {0, 0, 0, 0, 0};  // kLines: the block's tiles folded so far (thread 0)
   wflags[t] = 0;
 
   for (int tile = 0; tile < kTilesPerBlock; ++tile) {
@@ -121,6 +142,8 @@ hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restr
       continue;
     }
     const bool edge = 4 * (long long)(word0 + kTileWords) > start_limit;
+    // kStrict, block-uniform: the tile's windows and -w features reach true_len
+    const bool tail = M == kStrict && 4 * (long long)(word0 + kTileWords) + kTail > true_len;
 
     // 1. The tile's text and tail into shared memory, folded for -i.
     if (t < kTileBytes / 16) {
@@ -156,7 +179,9 @@ hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restr
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
             const int o = bo.off[4 * q + jj];
-            if (o != kNoByte) v |= uint32_t(is_word(b[o])) << (8 * jj);
+            // kStrict: no word flag at or past true_len
+            if (o != kNoByte && (!tail || 4 * (long long)(word0 + t) + o < true_len))
+              v |= uint32_t(is_word(b[o])) << (8 * jj);
           }
           f[q] = v;
         }
@@ -189,13 +214,14 @@ hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restr
         for (int kt = 0; kt < KT2; ++kt)
           wmma::load_matrix_sync(a2[kt], g2 + (size_t(mt - long_tile0) * KT2 + kt) * kFrag, 16);
       }
-      int nb1[8], nb2[8], phase[8];
+      int nb1[8], nb2[8], phase[8], len[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const int4 ri = __ldg(rows + mt * 16 + r0 + i);  // nb1, nb2, phase, 0
+        const int4 ri = __ldg(rows + mt * 16 + r0 + i);  // nb1, nb2, phase, pattern length
         nb1[i] = ri.x;
         nb2[i] = ri.y;
         phase[i] = ri.z;
+        len[i] = M == kStrict ? ri.w : 0;
       }
       for (int nt = 0; nt < kNT; ++nt) {
         wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
@@ -224,6 +250,8 @@ hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restr
           int hit = scr1[(r0 + i) * 16 + col] == nb1[i];
           if (two) hit &= scr2[(r0 + i) * 16 + col] == nb2[i];
           if (edge) hit &= 4 * (long long)(word0 + nt * 16 + col) + phase[i] < start_limit;
+          if (M == kStrict && tail)
+            hit &= 4 * (long long)(word0 + nt * 16 + col) + phase[i] + len[i] <= true_len;
           cnt += hit;
           bits |= uint32_t(hit) << phase[i];
         }
@@ -234,64 +262,118 @@ hamming_scan_kernel(const uint8_t* __restrict__ text, const signed char* __restr
     }
     __syncthreads();
 
-    // 4. The tile's union mask: byte 4w+p is 1 when a pattern starts there.
-    if (mask) reinterpret_cast<uint32_t*>(mask)[word0 + t] = expand4(wflags[t]);
+    // 4. The tile's union mask: byte 4w+p is 1 when a pattern starts there;
+    //    kLines: instead the line summary of the tile's 1 KiB, in byte
+    //    order (thread t walks word t), folded into the block's by thread 0.
+    if constexpr (M == kLines) {
+      __shared__ Summary warp_sums[kWarps];
+      const uint32_t flags = wflags[t];
+      const uint32_t bytes = reinterpret_cast<const uint32_t*>(tb)[t];  // folding keeps '\n'
+      Summary s = {0, 0, 0, 0, 0};
+      int state = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        walk_step(s, state, int((flags >> j) & 1), int(((bytes >> (8 * j)) & 0xFF) == '\n'));
+      s.trail = state;
+      s = warp_fold(s);
+      if (lane == 0) warp_sums[warp] = s;
+      __syncthreads();  // the next write of warp_sums follows two more barriers
+      if (t == 0) {
+        for (int w = 0; w < kWarps; ++w) line = combine(line, warp_sums[w]);
+      }
+    } else if (mask) {
+      reinterpret_cast<uint32_t*>(mask)[word0 + t] = expand4(wflags[t]);
+    }
     wflags[t] = 0;  // the next tile's first barrier orders this before its atomics
   }
 
-  // 5. The block's match count.
+  // 5. The block's match count (kLines: and the union's line summary).
   for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
   if (lane == 0) warp_counts[warp] = cnt;
   __syncthreads();
   if (t == 0) {
     int s = 0;
     for (int w = 0; w < kWarps; ++w) s += warp_counts[w];
-    counts[blockIdx.x] = s;
+    if constexpr (M == kLines) {
+      int* row = out + blockIdx.x * kStatWords;
+      row[0] = s;
+      row[1] = line.first;
+      row[2] = line.trail;
+      row[3] = line.lead;
+      row[4] = line.has_nl;
+      row[5] = row[6] = row[7] = 0;
+    } else {
+      out[blockIdx.x] = s;
+    }
   }
 }
 
-template <int KT1, int KT2>
+template <int KT1, int KT2, int M>
 int launch(const void* text, int nblocks, const void* g1, const void* g2, const void* rows,
            int mtiles, int long_tile0, const BoundaryOffsets& bo, int icase,
-           long long start_limit, int prev_flag, void* mask, void* counts, void* stream) {
+           long long start_limit, int prev_flag, long long true_len, void* mask, void* out,
+           void* stream) {
   constexpr int smem = smem_bytes(KT1, KT2);
-  cudaError_t err = cudaFuncSetAttribute(hamming_scan_kernel<KT1, KT2>,
+  cudaError_t err = cudaFuncSetAttribute(hamming_scan_kernel<KT1, KT2, M>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  hamming_scan_kernel<KT1, KT2><<<nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  hamming_scan_kernel<KT1, KT2, M><<<nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(text), static_cast<const signed char*>(g1),
       static_cast<const signed char*>(g2), static_cast<const int4*>(rows), mtiles, long_tile0,
-      bo, icase, start_limit, prev_flag, static_cast<uint8_t*>(mask), static_cast<int*>(counts));
+      bo, icase, start_limit, prev_flag, true_len, static_cast<uint8_t*>(mask),
+      static_cast<int*>(out));
   return int(cudaGetLastError());
 }
 
-}  // namespace
-
-// Match counts per 64 KiB block (`counts`, nblocks int32) and the 0/1 union
-// start mask (`mask`, nullable, nblocks * 65536 bytes) of nblocks * 64 KiB of
-// staged text, which must be 16-byte aligned and hold 64 more readable bytes.
-// g1: mtiles x (8, or 11 with `boundary`) int8 16x16 fragments, row-major;
-// g2: (mtiles - long_tile0) x 8 fragments (null for a one-window set);
-// rows: mtiles * 16 int4 of (nb1, nb2, phase, 0); boundary: null, or the 48
-// byte offsets of the -w feature rows. Only starts below `start_limit`
-// count; `prev_flag` is the -w flag of the byte before the text. Returns the
-// launch's cudaGetLastError().
-extern "C" int krep_hamming_scan(const void* text, int nblocks, const void* g1, const void* g2,
-                                 const void* rows, int mtiles, int long_tile0,
-                                 const signed char* boundary, int icase, long long start_limit,
-                                 int prev_flag, void* mask, void* counts, void* stream) {
-  if (nblocks < 1 || mtiles < 1 || long_tile0 < 0 || long_tile0 > mtiles || start_limit < 0)
-    return int(cudaErrorInvalidValue);
+template <int M>
+int launch_mode(const void* text, int nblocks, const void* g1, const void* g2, const void* rows,
+                int mtiles, int long_tile0, const signed char* boundary, int icase,
+                long long start_limit, int prev_flag, long long true_len, void* mask, void* out,
+                void* stream) {
   BoundaryOffsets bo;
   for (int c = 0; c < kBoundaryCols; ++c) bo.off[c] = boundary ? boundary[c] : kNoByte;
   const bool two = g2 != nullptr && long_tile0 < mtiles;
   if (boundary)
-    return two ? launch<11, 8>(text, nblocks, g1, g2, rows, mtiles, long_tile0, bo, icase,
-                               start_limit, prev_flag, mask, counts, stream)
-               : launch<11, 0>(text, nblocks, g1, g2, rows, mtiles, mtiles, bo, icase,
-                               start_limit, prev_flag, mask, counts, stream);
-  return two ? launch<8, 8>(text, nblocks, g1, g2, rows, mtiles, long_tile0, bo, icase,
-                            start_limit, prev_flag, mask, counts, stream)
-             : launch<8, 0>(text, nblocks, g1, g2, rows, mtiles, mtiles, bo, icase, start_limit,
-                            prev_flag, mask, counts, stream);
+    return two ? launch<11, 8, M>(text, nblocks, g1, g2, rows, mtiles, long_tile0, bo, icase,
+                                  start_limit, prev_flag, true_len, mask, out, stream)
+               : launch<11, 0, M>(text, nblocks, g1, g2, rows, mtiles, mtiles, bo, icase,
+                                  start_limit, prev_flag, true_len, mask, out, stream);
+  return two ? launch<8, 8, M>(text, nblocks, g1, g2, rows, mtiles, long_tile0, bo, icase,
+                               start_limit, prev_flag, true_len, mask, out, stream)
+             : launch<8, 0, M>(text, nblocks, g1, g2, rows, mtiles, mtiles, bo, icase,
+                               start_limit, prev_flag, true_len, mask, out, stream);
+}
+
+}  // namespace
+
+// Match counts per 64 KiB block (`out`, nblocks int32) and the 0/1 union
+// start mask (`mask`, nullable, nblocks * 65536 bytes) of nblocks * 64 KiB of
+// staged text, which must be 16-byte aligned and hold 64 more readable bytes.
+// g1: mtiles x (8, or 11 with `boundary`) int8 16x16 fragments, row-major;
+// g2: (mtiles - long_tile0) x 8 fragments (null for a one-window set);
+// rows: mtiles * 16 int4 of (nb1, nb2, phase, pattern length); boundary:
+// null, or the 48 byte offsets of the -w feature rows. Only starts below
+// `start_limit` count; `prev_flag` is the -w flag of the byte before the
+// text. `mode` 1 (lines) writes 8 int32 stats per block to `out` instead:
+// the count, then the union's first, trail, lead, has_nl, 0, 0, 0; it takes
+// no mask and no start_limit. `mode` 2 (strict) counts a start of a pattern
+// of length m only where start + m <= `true_len`, and reads no -w flag at or
+// past it. Returns the launch's cudaGetLastError().
+extern "C" int krep_hamming_scan(const void* text, int nblocks, const void* g1, const void* g2,
+                                 const void* rows, int mtiles, int long_tile0,
+                                 const signed char* boundary, int icase, long long start_limit,
+                                 int prev_flag, long long true_len, int mode, void* mask,
+                                 void* out, void* stream) {
+  if (nblocks < 1 || mtiles < 1 || long_tile0 < 0 || long_tile0 > mtiles || start_limit < 0 ||
+      true_len < 0 || mode < kCount || mode > kStrict)
+    return int(cudaErrorInvalidValue);
+  if (mode == kLines && mask) return int(cudaErrorInvalidValue);
+  if (mode == kLines)
+    return launch_mode<kLines>(text, nblocks, g1, g2, rows, mtiles, long_tile0, boundary, icase,
+                               start_limit, prev_flag, true_len, mask, out, stream);
+  if (mode == kStrict)
+    return launch_mode<kStrict>(text, nblocks, g1, g2, rows, mtiles, long_tile0, boundary, icase,
+                                start_limit, prev_flag, true_len, mask, out, stream);
+  return launch_mode<kCount>(text, nblocks, g1, g2, rows, mtiles, long_tile0, boundary, icase,
+                             start_limit, prev_flag, true_len, mask, out, stream);
 }

@@ -1,5 +1,5 @@
 // Pieces shared by the port's scan kernels (swar_scan.cu, multi_scan.cu,
-// lines_scan.cu, hamming_scan.cu): the 64 KiB block geometry, the
+// lines_scan.cu, hamming_scan.cu, byte_scan.cu): the 64 KiB block geometry, the
 // line-accounting summary and its ordered fold, the ASCII fold and the
 // word-byte test.
 
@@ -34,7 +34,7 @@ struct Summary {
 
 __device__ __forceinline__ Summary combine(const Summary& x, const Summary& y) {
   Summary r;
-  r.count = x.count + y.count;
+  r.count = int(unsigned(x.count) + unsigned(y.count));  // wraps (the byte sum of passthrough)
   r.first = x.first + y.first - (x.trail & y.lead);  // the spanning line counted once
   r.trail = y.has_nl ? y.trail : (x.trail | y.trail);
   r.lead = x.has_nl ? x.lead : (x.lead | y.lead);

@@ -122,7 +122,10 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.krep_lines_blocks.restype = i
     lib.krep_lines_blocks.argtypes = [vp, vp, i, vp, vp]
     lib.krep_hamming_scan.restype = i
+    ll = ctypes.c_longlong
     lib.krep_hamming_scan.argtypes = [
-        vp, i, vp, vp, vp, i, i, ctypes.c_char_p, i, ctypes.c_longlong, i, vp, vp, vp,
+        vp, i, vp, vp, vp, i, i, ctypes.c_char_p, i, ll, i, ll, i, vp, vp, vp,
     ]
+    lib.krep_byte_scan.restype = i
+    lib.krep_byte_scan.argtypes = [vp, i, vp, i, i, i, i, i, vp, vp, vp]
     return lib

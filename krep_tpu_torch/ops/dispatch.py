@@ -7,8 +7,21 @@ R rows (a multiple of 512, so a whole number of 64 KiB blocks) plus a
 up to 64 bytes into that halo.
 
 There is one route per device: a CUDA tensor goes through the CUDA kernels
-(ops/swar.py, ops/mxu.py), a CPU tensor through their plain PyTorch
-versions.
+(ops/swar.py, ops/mxu.py, ops/bytescan.py), a CPU tensor through their
+plain PyTorch versions.
+
+KREP_TPU_BACKEND (the JAX package's knob, `backend()`) picks the
+single-literal kernel: `auto`, `swar` and `xla` take the SWAR scan
+(csrc/swar_scan.cu), `pallas` the byte-per-thread scan (csrc/byte_scan.cu,
+the port of krep_tpu/ops/pallas_scan.py). The byte scan runs where
+krep_tpu's `_scan_literal_staged` runs pallas_scan (dispatch.py:267-280):
+a start mask or no mask, with no start_limit and no prev_word, which is the
+single-array route, the long-pattern prefix filter and the -r position and
+`-c -o` batches. The slab loop (start_limit, prev_word), the -r -c
+`first_line` batches and the mesh keep the SWAR kernel. krep_tpu sends its
+slab loop to a numpy host scan under a non-SWAR backend
+(engine/search.py:307-319); the port does not, since that would put a CPU
+route on a machine with a card.
 """
 
 from __future__ import annotations
@@ -18,7 +31,7 @@ import os
 import numpy as np
 import torch
 
-from . import swar
+from . import bytescan, swar
 from .literal import BLOCK_BYTES
 
 TILE_ROWS = 512        # R is a multiple of this: 64 KiB of text
@@ -26,6 +39,16 @@ HALO_ROWS = 32         # 4 KiB forward zero halo
 LANES = 128
 HALO_BYTES = HALO_ROWS * LANES
 GROUP_BYTES = BLOCK_BYTES  # mask readback groups: 64 KiB of text each
+BACKENDS = ("auto", "swar", "xla", "pallas")
+
+
+def backend() -> str:
+    """$KREP_TPU_BACKEND (default "auto"): "pallas" selects the byte scan,
+    "auto", "swar" and "xla" the SWAR scan; any other value raises."""
+    mode = os.environ.get("KREP_TPU_BACKEND", "auto")
+    if mode not in BACKENDS:
+        raise ValueError(f"KREP_TPU_BACKEND={mode!r}: expected one of {', '.join(BACKENDS)}")
+    return mode
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -67,7 +90,9 @@ def bucket_size(n: int) -> int:
 class StagedText:
     """One padded host buffer (pinned when the device is CUDA) and its
     device copy `u8`, flat uint8 in the staged layout; `n` = `true_len` is
-    the real byte count. On the CPU `u8` is the host buffer itself."""
+    the real byte count. On the CPU `u8` is the host buffer itself.
+    `tail_zero`: every byte at and past true_len is zero, as fresh staging
+    leaves them (a with_len view may say otherwise)."""
 
     def __init__(self, host: torch.Tensor, n: int, device: torch.device):
         if host.shape[0] != bucket_size(n):
@@ -76,11 +101,26 @@ class StagedText:
         self._np = host.numpy()
         self.n = n
         self.true_len = n
+        self.tail_zero = True
         self.u8 = host.to(device, non_blocking=True) if device.type == "cuda" else host
 
     @property
     def n_blocks(self) -> int:
         return (self.u8.shape[0] - HALO_BYTES) // BLOCK_BYTES
+
+    def with_len(self, n: int, tail_zero: bool = False) -> "StagedText":
+        """A view of the same buffers (host and device, staged once) with
+        another length n (krep_tpu's StagedText.with_len, which its bench
+        uses to time chained lengths). tail_zero: the caller asserts that
+        the bytes at and past n are zero; otherwise they may be live text,
+        which the Hamming route bounds only with strict=True."""
+        if not 0 <= n <= self.n_blocks * BLOCK_BYTES:
+            raise ValueError("with_len: n lies outside the staged body")
+        other = object.__new__(StagedText)
+        other.__dict__.update(self.__dict__)
+        other.n = other.true_len = n
+        other.tail_zero = tail_zero
+        return other
 
 
 def as_u8(text) -> np.ndarray:
@@ -115,6 +155,7 @@ def stage(
     st = StagedText(host, n, dev)
     if true_len is not None:
         st.true_len = true_len
+        st.tail_zero = true_len >= n
     return st
 
 
@@ -128,7 +169,16 @@ def scan_literal_staged(
     u8 0/1 mask over the staged body (None unless want_mask) of match
     starts, or for mask_kind="first_line" of the -c dedup events (the first
     match of each line), group_counts the per-64 KiB match counts (the scan
-    kernel's block counts)."""
+    kernel's block counts). Under KREP_TPU_BACKEND=pallas a starts mask (or
+    none) with no start_limit and no prev_word runs the byte scan, else the
+    SWAR scan (module docstring); both give the same summaries."""
+    if (backend() == "pallas" and mask_kind == "starts" and start_limit is None
+            and not prev_word):
+        stats, mask = bytescan.scan_blocks_bytes(
+            staged.u8, staged.true_len, staged.n_blocks, pattern=pattern,
+            case_sensitive=case_sensitive, whole_word=whole_word, want_mask=want_mask,
+        )
+        return swar.combine_blocks(stats), mask, stats[:, 0]
     stats, mask = swar.scan_blocks(
         staged.u8, staged.true_len, staged.n_blocks, pattern=pattern,
         case_sensitive=case_sensitive, whole_word=whole_word,

@@ -21,6 +21,8 @@ import torch
 NEWLINE = 10
 BLOCK_BYTES = 65536  # text bytes per CUDA block, and per summary row
 STAT_WORDS = 8       # count, first, trail, lead, has_nl, 0, 0, 0
+PREFIX_PASSES = 8    # all_starts_mask compares this many pattern bytes at every start
+VERIFY_BYTES = 1 << 22  # ... and the rest at the surviving starts, this many bytes a chunk
 
 
 def fold_bytes_host(b: bytes) -> bytes:
@@ -75,8 +77,18 @@ def all_starts_mask(
     t = text if case_sensitive else _fold(text)
     # starts < lim need bytes up to lim + m - 1 <= true_len <= n
     acc[:lim] = t[:lim] == pat[0]
-    for j in range(1, m):
+    for j in range(1, min(m, PREFIX_PASSES)):
         acc[:lim] &= t[j : lim + j] == pat[j]
+    if m > PREFIX_PASSES:
+        # the rest of a long pattern at the surviving starts only, in chunks
+        # of about VERIFY_BYTES compared bytes
+        cand = torch.nonzero(acc[:lim]).squeeze(1)
+        rest = torch.tensor(list(pat[PREFIX_PASSES:]), dtype=torch.uint8, device=text.device)
+        offs = torch.arange(PREFIX_PASSES, m, device=text.device)
+        step = max(1, VERIFY_BYTES // m)
+        for c0 in range(0, cand.shape[0], step):
+            c = cand[c0 : c0 + step]
+            acc[c[~(t[c[:, None] + offs] == rest).all(1)]] = False
 
     if whole_word:
         # is_whole_word_match (krep.h:307-319): the bytes before the start

@@ -10,7 +10,8 @@ Two kernels carry the passes:
   * from MXU_MIN_K = 32 patterns of 1..29 NUL-free bytes up: the Hamming
     products on the int8 tensor cores (mxu.scan_count,
     csrc/hamming_scan.cu), up to 256 patterns per pass; their -c chains the
-    union mask into the lines kernel (swar.lines_blocks).
+    union mask into the lines kernel (swar.lines_blocks), or with
+    KREP_TPU_MXU_LINES=inkernel counts the lines in the Hamming kernel.
 Positions come from the union start mask, attributed to patterns on the
 host and truncated in AC emission order by engine/resolve.py. The
 caller's pattern tuple (not the Hamming tables' shorts-first order) is the
@@ -22,6 +23,8 @@ across them (`_search_multi_sharded`, parallel/mesh.py).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -52,16 +55,21 @@ def cap(count: int, max_count: int | None) -> int:
     return min(count, max_count) if max_count is not None else count
 
 
-def fused_count_device(staged, patterns, case_sensitive, whole_word, max_count=None) -> int:
+def fused_count_device(staged, patterns, case_sensitive, whole_word, max_count=None,
+                       strict=False) -> int:
     """Total ALL-overlap count of K patterns: Hamming passes when the set
     qualifies, else fused passes of FUSED_MAX. Multi-pass runs stop once
-    max_count is reached (krep.c:2950-2962's budget capping)."""
+    max_count is reached (krep.c:2950-2962's budget capping). strict=True
+    bounds the Hamming passes' starts against staged.true_len explicitly,
+    which a StagedText.with_len view whose tail holds live text needs (the
+    fused pass bounds its starts by true_len anyway)."""
     if _mxu_eligible(patterns):
         groups = _groups(patterns, mxu.MXU_MAX_PASS)
 
         def scan(g):
             return mxu.scan_count(
-                staged, patterns=g, case_sensitive=case_sensitive, whole_word=whole_word
+                staged, patterns=g, case_sensitive=case_sensitive, whole_word=whole_word,
+                strict=strict,
             )[0]
     else:
         groups = _groups(patterns, FUSED_MAX)
@@ -110,7 +118,20 @@ def fused_lines_device(staged, patterns, case_sensitive, whole_word) -> int:
     """Matched-line count of the K-pattern union on the device: the union
     mask chained into the lines kernel and the ordered combine, so only
     scalars leave the card (the reference's AC counts lines in-stream,
-    aho_corasick.c:390-403)."""
+    aho_corasick.c:390-403). With KREP_TPU_MXU_LINES=inkernel, a
+    Hamming-eligible set of at most MXU_MAX_PASS patterns over a text with
+    a zero tail counts its lines in the Hamming kernel instead, with no
+    mask (krep_tpu's multi.py:189-200)."""
+    if (
+        os.environ.get("KREP_TPU_MXU_LINES") == "inkernel"
+        and _mxu_eligible(patterns)
+        and len(patterns) <= mxu.MXU_MAX_PASS
+        and staged.tail_zero
+    ):
+        return int(mxu.scan_count(
+            staged, patterns=tuple(patterns), case_sensitive=case_sensitive,
+            whole_word=whole_word, want_lines=True,
+        )[1])
     mask, _ = fused_union_mask_device(staged, patterns, case_sensitive, whole_word)
     stats = swar.lines_blocks(staged.u8, mask, staged.n_blocks)
     return int(swar.combine_blocks(stats)[1])

@@ -1,12 +1,16 @@
 """Multi-pattern count as int8 Hamming products (the K >= 32 route).
 
-Port of krep_tpu/ops/mxu_multi.py in the modes the multi-pattern path uses:
-the ALL-overlap count of up to MXU_MAX_PASS patterns of 1..MAX_LEN_LONG
-NUL-free bytes, and their union start mask, over freshly staged text
-(zeros past true_len, so no bound at the text's end: strict=False). The
-sharded route (parallel/mesh.py) adds the shard mode: `start_limit` drops
-the starts past a shard's owned bytes, whose windows read the next shard's
-real text, and `prev_flag` is the -w flag of the byte before the shard.
+Port of krep_tpu/ops/mxu_multi.py in all its modes: the ALL-overlap count
+of up to MXU_MAX_PASS patterns of 1..MAX_LEN_LONG NUL-free bytes, and their
+union start mask, over freshly staged text (zeros past true_len, so no
+bound at the text's end). The sharded route (parallel/mesh.py) adds the
+shard mode: `start_limit` drops the starts past a shard's owned bytes, whose
+windows read the next shard's real text, and `prev_flag` is the -w flag of
+the byte before the shard. `want_lines` (KREP_TPU_MXU_LINES=inkernel,
+ops/multi.py) writes per-block line summaries of the union instead of its
+mask; `strict` bounds each start by its pattern's length against true_len
+and reads no -w flag past it, for a StagedText.with_len view whose bytes
+past true_len are live text (and lets members hold NUL bytes).
 
 A match of pattern k at byte 4w+p is a zero Hamming distance over the
 window of 16 bytes at word w, which is linear in the text's bits:
@@ -20,7 +24,8 @@ output in jnp arrays), so both packages use the same tables.
 `hamming_scan` launches the CUDA kernel (csrc/hamming_scan.cu, WMMA on the
 int8 tensor cores) on a CUDA tensor and runs `hamming_scan_plain`, the same
 products in float32, on a CPU tensor. `LAUNCHES` counts kernel launches,
-`SHARD_LAUNCHES` those of them in the shard mode.
+`SHARD_LAUNCHES`, `LINES_LAUNCHES` and `STRICT_LAUNCHES` those of them in
+the shard, line and strict modes.
 """
 
 from __future__ import annotations
@@ -30,7 +35,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .literal import BLOCK_BYTES, _fold, _is_word_char, fold_bytes_host
+from .literal import (
+    BLOCK_BYTES, STAT_WORDS, _fold, _is_word_char, fold_bytes_host, lines_block_stats,
+)
 
 MAX_LEN = 13          # p + len <= 16 window bytes: one product
 MAX_LEN_LONG = 29     # p + len <= 32: the two-window AND
@@ -41,6 +48,8 @@ PLAIN_CHUNK_WORDS = 1 << 18  # 1 MiB of text per plain product
 
 LAUNCHES = 0
 SHARD_LAUNCHES = 0
+LINES_LAUNCHES = 0
+STRICT_LAUNCHES = 0
 NO_LIMIT = 1 << 62    # start_limit of the kernel when there is none
 
 # Kernel operand geometry (csrc/hamming_scan.cu).
@@ -129,11 +138,12 @@ class HammingTables(NamedTuple):
     nb2: torch.Tensor | None    # (4*kp_l,) int32
     kp_s: int
     qs: tuple
+    lens: torch.Tensor          # (4Kp,) int32: each row's pattern length
     # kernel operands (csrc/hamming_scan.cu): rows regrouped into a short
     # and a long section, each padded to 16 rows, as 16x16 fragments
     g1_frags: torch.Tensor      # (mtiles, KT1, 16, 16) int8
     g2_frags: torch.Tensor | None  # (mtiles - long_tile0, 8, 16, 16) int8
-    rows: torch.Tensor          # (16 * mtiles, 4) int32: nb1, nb2, phase, 0
+    rows: torch.Tensor          # (16 * mtiles, 4) int32: nb1, nb2, phase, length
     long_tile0: int
     boundary: bytes | None      # byte offsets of the 48 -w feature rows
 
@@ -151,7 +161,7 @@ def _fragments(m: np.ndarray, cols: int) -> np.ndarray:
 
 def device_tables(tables, device) -> HammingTables:
     """build_tables' output (numpy) as the port's tensors on `device`."""
-    G1, nb1, G2, nb2, _lens, _bitmask, kp_s, qs = tables
+    G1, nb1, G2, nb2, lens, _bitmask, kp_s, qs = tables
     Kp = G1.shape[0] // 4
     kp_l = Kp - kp_s
     short = [p * Kp + i for p in range(4) for i in range(kp_s)]
@@ -166,6 +176,7 @@ def device_tables(tables, device) -> HammingTables:
     rows[:, 0] = 1  # padding never hits
     rows[real, 0] = nb1[order[real], 0]
     rows[real, 2] = order[real] // Kp
+    rows[real, 3] = lens[order[real], 0]
     g2_frags = None
     if G2 is not None:
         g2k = np.zeros((L, G2.shape[1]), np.int8)
@@ -187,6 +198,7 @@ def device_tables(tables, device) -> HammingTables:
     return HammingTables(
         g1=put(G1), nb1=put(nb1[:, 0]), g2=put(G2),
         nb2=None if nb2 is None else put(nb2[:, 0]), kp_s=kp_s, qs=tuple(qs),
+        lens=put(lens[:, 0]),
         g1_frags=put(_fragments(g1k, _KCOLS_WORD if qs else ROWS)),
         g2_frags=put(g2_frags), rows=put(rows), long_tile0=S // _FRAG, boundary=boundary,
     )
@@ -200,20 +212,36 @@ def _window_bits(t: torch.Tensor, words: torch.Tensor, j0: int, nj: int) -> torc
     return bits.reshape(8 * nj, -1).to(torch.float32)
 
 
+def _check_modes(want_mask, want_lines, strict, true_len, start_limit):
+    if want_lines and (want_mask or strict or start_limit is not None):
+        raise ValueError("want_lines takes no mask, strict or start_limit")
+    if strict and (true_len is None or true_len < 0):
+        raise ValueError("strict needs a true_len >= 0")
+    if start_limit is not None and start_limit < 0:
+        raise ValueError("start_limit must not be negative")
+
+
 def hamming_scan_plain(
     text: torch.Tensor, n_blocks: int, tables: HammingTables, *,
     case_sensitive: bool = True, want_mask: bool = False,
     start_limit: int | None = None, prev_flag: int = 0,
+    want_lines: bool = False, strict: bool = False, true_len: int | None = None,
 ):
     """Plain twin of the Hamming kernel: per-64 KiB-block match counts
     (n_blocks,) int32 and the u8 0/1 union start mask over the body (None
     unless want_mask), from the same products D = G @ W in float32 (with
     the -w boundary features when the tables have them), in
     chunks of PLAIN_CHUNK_WORDS words. Only starts below `start_limit`
-    count; `prev_flag` is the -w flag of the byte before the text. Every W
-    and G entry is 0 or +-1 and |D| <= 176, so float32 — and TF32 as well
-    — is exact; TF32 is turned off on the card anyway, so exactness never
-    rests on that bound."""
+    count; `prev_flag` is the -w flag of the byte before the text. With
+    `strict`, a start of a pattern of length m counts only where
+    start + m <= `true_len`, and the -w features read no word flag at or
+    past true_len. With `want_lines`, returns (stats, None): the (n_blocks,
+    8) int32 summaries of literal.lines_block_stats over the union mask,
+    word 0 replaced by the block counts. Every W and G entry is 0 or +-1
+    and |D| <= 176, so float32 — and TF32 as well — is exact; TF32 is
+    turned off on the card anyway, so exactness never rests on that
+    bound."""
+    _check_modes(want_mask, want_lines, strict, true_len, start_limit)
     if text.device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     dev = text.device
@@ -228,13 +256,19 @@ def hamming_scan_plain(
         g2 = tables.g2.to(torch.float32)
         nb2 = tables.nb2.to(torch.float32)[:, None]
         kp_l = Kp - kp_s
+    if tables.qs:
+        is_w = _is_word_char(t)
+        if strict:
+            is_w[true_len:] = False
+    if strict:  # the last start of each row
+        last = true_len - tables.lens.to(torch.int64).view(4, Kp, 1)
     per_word = torch.empty(body // 4, dtype=torch.int32, device=dev)
-    mask = torch.zeros(body, dtype=torch.uint8, device=dev) if want_mask else None
+    need_mask = want_mask or want_lines
+    mask = torch.zeros(body, dtype=torch.uint8, device=dev) if need_mask else None
     for w0 in range(0, body // 4, PLAIN_CHUNK_WORDS):
         words = torch.arange(w0, min(body // 4, w0 + PLAIN_CHUNK_WORDS), device=dev)
         feats = [_window_bits(t, words, 0, 16)]
         if tables.qs:  # -w boundary features
-            is_w = _is_word_char(t)
             for q in tables.qs:
                 idx = 4 * (words[None, :] + q) + torch.arange(4, device=dev)[:, None]
                 feats.append(is_w[idx].to(torch.float32))
@@ -247,14 +281,22 @@ def hamming_scan_plain(
             hits2 = (g2 @ _window_bits(t, words, 16, g2.shape[1] // 8)) == nb2
             for p in range(4):
                 hits[p * Kp + kp_s : (p + 1) * Kp] &= hits2[p * kp_l : (p + 1) * kp_l]
-        if start_limit is not None:  # row p * Kp + k starts at byte 4w + p
-            starts = 4 * words[None, :] + torch.arange(4, device=dev)[:, None]
+        # row p * Kp + k starts at byte 4w + p
+        starts = 4 * words[None, :] + torch.arange(4, device=dev)[:, None]
+        if start_limit is not None:
             hits = (hits.view(4, Kp, -1) & (starts < start_limit)[:, None, :]).view(4 * Kp, -1)
+        if strict:  # only the words whose windows may reach true_len
+            lo = max(0, min(words.shape[0], (true_len - 32) // 4 - w0))
+            hits.view(4, Kp, -1)[:, :, lo:] &= starts[:, None, lo:] <= last
         per_word[words[0] : words[-1] + 1] = hits.sum(0, dtype=torch.int32)
-        if want_mask:
+        if need_mask:
             anyp = hits.view(4, Kp, -1).any(1)                     # (4, nw)
             mask.view(-1, 4)[words[0] : words[-1] + 1] = anyp.T.to(torch.uint8)
     counts = per_word.view(n_blocks, BLOCK_BYTES // 4).sum(1, dtype=torch.int32)
+    if want_lines:
+        stats = lines_block_stats(text, mask, n_blocks)
+        stats[:, 0] = counts
+        return stats, None
     return counts, mask
 
 
@@ -262,6 +304,7 @@ def hamming_scan(
     text: torch.Tensor, n_blocks: int, tables: HammingTables, *,
     case_sensitive: bool = True, want_mask: bool = False,
     start_limit: int | None = None, prev_flag: int = 0,
+    want_lines: bool = False, strict: bool = False, true_len: int | None = None,
 ):
     """Per-64 KiB-block match counts (n_blocks,) int32 and the u8 0/1 union
     start mask (None unless want_mask) of the tables' patterns over the
@@ -270,23 +313,27 @@ def hamming_scan(
     tables were built for; `case_sensitive` must match them too. With a
     `start_limit` (the shard mode) only starts below it count, and the
     bytes past it may be real text; `prev_flag` is the -w flag of the byte
-    before the text."""
+    before the text. `strict` (with `true_len`) bounds each start by its
+    pattern's length against true_len, for text whose bytes past true_len
+    are live. `want_lines` (no mask, strict or start_limit) returns
+    (stats, None) instead: (n_blocks, 8) int32 [count, first, trail, lead,
+    has_nl, 0, 0, 0] of the union, which swar.combine_blocks folds."""
     from . import swar
 
     body = swar._check_text(text, n_blocks, swar.TAIL_BYTES)
-    if start_limit is not None and start_limit < 0:
-        raise ValueError("start_limit must not be negative")
+    _check_modes(want_mask, want_lines, strict, true_len, start_limit)
+    kw = dict(case_sensitive=case_sensitive, want_mask=want_mask, start_limit=start_limit,
+              prev_flag=prev_flag, want_lines=want_lines, strict=strict, true_len=true_len)
     if swar._device_kind(text) == "cpu":
-        return hamming_scan_plain(
-            text, n_blocks, tables, case_sensitive=case_sensitive, want_mask=want_mask,
-            start_limit=start_limit, prev_flag=prev_flag,
-        )
+        return hamming_scan_plain(text, n_blocks, tables, **kw)
 
     from . import _build
 
     swar._check_cuda(text, torch.uint8, "text")
-    counts = torch.empty(n_blocks, dtype=torch.int32, device=text.device)
+    shape = (n_blocks, STAT_WORDS) if want_lines else (n_blocks,)
+    out = torch.empty(shape, dtype=torch.int32, device=text.device)
     mask = torch.empty(body, dtype=torch.uint8, device=text.device) if want_mask else None
+    mode = 1 if want_lines else 2 if strict else 0  # csrc/hamming_scan.cu's Mode
     stream = torch.cuda.current_stream(text.device).cuda_stream
     with torch.cuda.device(text.device):
         err = _build.library().krep_hamming_scan(
@@ -295,35 +342,47 @@ def hamming_scan(
             tables.rows.data_ptr(), tables.g1_frags.shape[0], tables.long_tile0,
             tables.boundary, int(not case_sensitive),
             NO_LIMIT if start_limit is None else int(start_limit), int(bool(prev_flag)),
-            None if mask is None else mask.data_ptr(), counts.data_ptr(), stream,
+            int(true_len) if strict else 0, mode,
+            None if mask is None else mask.data_ptr(), out.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(f"hamming_scan kernel launch failed: CUDA error {err}")
-    global LAUNCHES, SHARD_LAUNCHES
+    global LAUNCHES, SHARD_LAUNCHES, LINES_LAUNCHES, STRICT_LAUNCHES
     LAUNCHES += 1
-    if start_limit is not None:
-        SHARD_LAUNCHES += 1
-    return counts, mask
+    SHARD_LAUNCHES += start_limit is not None
+    LINES_LAUNCHES += want_lines
+    STRICT_LAUNCHES += strict
+    return out, mask
 
 
 def scan_count(staged, *, patterns: tuple[bytes, ...], case_sensitive: bool = True,
                whole_word: bool = False, want_mask: bool = False,
-               start_limit: int | None = None, prev_flag: int = 0):
-    """ALL-overlap count of 1..MXU_MAX_PASS patterns over a freshly staged
-    text (dispatch.StagedText). Returns device tensors (total, mask,
+               start_limit: int | None = None, prev_flag: int = 0,
+               strict: bool = False, want_lines: bool = False):
+    """ALL-overlap count of 1..MXU_MAX_PASS patterns over a staged text
+    (dispatch.StagedText). Returns device tensors (total, mask,
     group_counts): the int64 total, the u8 0/1 union start mask (None
-    unless want_mask) and the per-64 KiB counts. Members must be
-    1..MAX_LEN_LONG NUL-free bytes: with zeros past true_len, a window that
-    crosses it can then never match, so no bound at the text's end is
-    needed. `start_limit` and `prev_flag` as for hamming_scan (the
-    arguments of mxu_multi.scan_count)."""
+    unless want_mask) and the per-64 KiB counts; with want_lines, the
+    matched-line count of the union (int32) in place of the mask.
+    Members must be 1..MAX_LEN_LONG bytes. Without `strict` they must be
+    NUL-free and the text freshly staged: with zeros past true_len, a
+    window that crosses it can then never match, so no bound at the text's
+    end is needed. `strict` bounds every start against staged.true_len
+    instead, for a with_len view, and takes NUL members as well.
+    `start_limit` and `prev_flag` as for hamming_scan (the arguments of
+    mxu_multi.scan_count)."""
     if not 1 <= len(patterns) <= MXU_MAX_PASS or any(
-        not 0 < len(p) <= MAX_LEN_LONG or 0 in p for p in patterns
+        not 0 < len(p) <= MAX_LEN_LONG or (0 in p and not strict) for p in patterns
     ):
         raise ValueError("pattern set outside the Hamming kernel's support")
     tables = device_tables(build_tables(patterns, case_sensitive, whole_word), staged.u8.device)
-    counts, mask = hamming_scan(
+    out, mask = hamming_scan(
         staged.u8, staged.n_blocks, tables, case_sensitive=case_sensitive,
         want_mask=want_mask, start_limit=start_limit, prev_flag=prev_flag,
+        want_lines=want_lines, strict=strict, true_len=staged.true_len if strict else None,
     )
-    return counts.sum(), mask, counts
+    if want_lines:
+        from .swar import combine_blocks
+
+        return out[:, 0].sum(), combine_blocks(out)[1], out[:, 0]
+    return out.sum(), mask, out

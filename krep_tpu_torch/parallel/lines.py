@@ -73,7 +73,7 @@ def combine_block_stats(stats: torch.Tensor) -> torch.Tensor:
     open_end, open_in = _open_lines(s)
     nl_before = torch.cumsum(has_nl.to(torch.int64), 0) - has_nl.to(torch.int64)
     out = torch.zeros(8, dtype=torch.int32, device=s.device)
-    out[0] = count.sum()
+    out[0] = (count.sum() + (1 << 31)) % (1 << 32) - (1 << 31)  # wraps, as the kernel's sum
     out[1] = first.sum() - (open_in & lead).sum()
     out[2] = open_end[-1]
     out[3] = (lead & (nl_before == 0)).any()

@@ -15,7 +15,7 @@ import torch
 import naive
 from krep_tpu_torch import SearchParams, search_string
 from krep_tpu_torch.engine import search as search_mod
-from krep_tpu_torch.ops import dispatch, literal, mxu, swar
+from krep_tpu_torch.ops import bytescan, dispatch, literal, multi, mxu, swar
 from krep_tpu_torch.parallel import lines
 
 
@@ -406,3 +406,103 @@ def test_real_mesh_matches_one_card(cuda_device, monkeypatch, tmp_path):
                          out.getvalue()))
         assert outs[0] == outs[1] and outs[0][0] == 0
     assert staged and {len(m) for m in staged} == {n_cards}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 65536, 300_000])
+def test_byte_scan_matches_plain(cuda_device, size):
+    """The byte scan against its plain version, exactly: patterns of 1 to
+    4096 bytes (cut from the text across block edges), -i, -w, with and
+    without the mask, over texts of one to five blocks."""
+    text = edge_text(size, max(size, 8))[:size]
+    st = dispatch.stage(text, cuda_device)
+    pats = [b"t", b"the", b"\nt", b"_THE", text[65530:65547], text[65000:65064],
+            text[131000:131065], text[120_000:121_000], text[60_000:64_096]]
+    for pat in (p for p in pats if p):
+        for cs, ww in [(True, False), (False, True), (False, False), (True, True)]:
+            for want_mask in (False, True):
+                kw = dict(pattern=pat, case_sensitive=cs, whole_word=ww, want_mask=want_mask)
+                before = (bytescan.LAUNCHES, bytescan.MASK_LAUNCHES)
+                stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, st.n_blocks, **kw)
+                assert (bytescan.LAUNCHES, bytescan.MASK_LAUNCHES) == (before[0] + 1,
+                                                                      before[1] + want_mask)
+                pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len, st.n_blocks, **kw)
+                assert torch.equal(stats, pstats)
+                if want_mask:
+                    assert torch.equal(mask, pmask)
+                    want = naive.all_starts(text, pat, cs, ww)
+                    assert torch.nonzero(mask).squeeze(1).tolist() == want
+
+
+@pytest.mark.cuda
+def test_byte_scan_variants_match_plain(cuda_device):
+    """Each cost-attribution variant against its plain version, and the
+    passthrough sum against torch.sum, over a text whose byte sum wraps
+    int32."""
+    rng = np.random.default_rng(0)
+    text = rng.integers(97, 123, 24 << 20, dtype=np.uint8)
+    text[::1000] = 10
+    st = dispatch.stage(text, cuda_device)
+    for mode in bytescan.VARIANTS:
+        before = bytescan.VARIANT_LAUNCHES[mode]
+        stats = bytescan.scan_variant(st.u8, st.true_len, st.n_blocks, mode=mode)
+        assert bytescan.VARIANT_LAUNCHES[mode] == before + 1
+        assert torch.equal(stats, bytescan.variant_stats_plain(st.u8, st.true_len, st.n_blocks,
+                                                               mode=mode))
+        got = bytescan.run_variant(st.u8, st.true_len, st.n_blocks, mode=mode).tolist()
+        assert got == lines.combine_block_stats(stats)[:2].tolist()
+    body = st.n_blocks * 65536
+    total = int(text.astype(np.int64).sum())
+    assert total > 2**31
+    got = int(bytescan.run_variant(st.u8, st.true_len, st.n_blocks, mode="passthrough")[0])
+    assert got == (total + 2**31) % 2**32 - 2**31 == int(torch.sum(st.u8[:body], dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patterns", MULTI_SETS, ids=["K1", "K3", "K64"])
+def test_hamming_lines_and_strict_match_plain(cuda_device, patterns):
+    """The Hamming kernel's line mode and strict mode against their plain
+    versions, exactly: lines over five blocks with -i and -w and a
+    '\n'-leading member; strict on with_len(n - j) views of a buffer with
+    live text past true_len."""
+    text = edge_text(5, 300_000)
+    st = dispatch.stage(text, cuda_device)
+    for cs, ww in [(True, False), (False, False), (True, True), (False, True)]:
+        tables = mxu.device_tables(mxu.build_tables(patterns, cs, ww), cuda_device)
+        before = (mxu.LAUNCHES, mxu.LINES_LAUNCHES)
+        stats, none = mxu.hamming_scan(st.u8, st.n_blocks, tables, case_sensitive=cs,
+                                       want_lines=True)
+        assert none is None and (mxu.LAUNCHES, mxu.LINES_LAUNCHES) == (before[0] + 1,
+                                                                      before[1] + 1)
+        pstats, _ = mxu.hamming_scan_plain(st.u8, st.n_blocks, tables, case_sensitive=cs,
+                                           want_lines=True)
+        assert torch.equal(stats, pstats)
+        for j in (0, 1, 17, 4095):
+            view = st.with_len(len(text) - j)
+            kw = dict(case_sensitive=cs, want_mask=True, strict=True, true_len=view.true_len)
+            before = mxu.STRICT_LAUNCHES
+            counts, mask = mxu.hamming_scan(view.u8, view.n_blocks, tables, **kw)
+            assert mxu.STRICT_LAUNCHES == before + 1
+            pcounts, pmask = mxu.hamming_scan_plain(view.u8, view.n_blocks, tables, **kw)
+            assert torch.equal(counts, pcounts) and torch.equal(mask, pmask)
+            if j == 17:
+                head = text[: view.n]
+                want = sorted({s for p in patterns for s in naive.all_starts(head, p, cs, ww)})
+                assert torch.nonzero(mask).squeeze(1).tolist() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", MODES, ids=lambda kw: ",".join(kw) or "lines")
+def test_knobs_on_card_match_cpu(cuda_device, kw, monkeypatch):
+    """KREP_TPU_BACKEND=pallas (one literal) and KREP_TPU_MXU_LINES=inkernel
+    (40 patterns) on the card against the CPU."""
+    monkeypatch.setenv("KREP_TPU_HOST_BREAKEVEN", "0")
+    monkeypatch.setenv("KREP_TPU_BACKEND", "pallas")
+    monkeypatch.setenv("KREP_TPU_MXU_LINES", "inkernel")
+    text = naive.gen_english(34, 400_000)
+    words = sorted(set(text.split()))
+    for pats in ((b"the",), tuple((words + [w + b"x" for w in words])[:40])):
+        p = SearchParams(patterns=pats, **kw)
+        want = search_string(p, text, device="cpu")
+        got = search_string(p, text, device=cuda_device)
+        assert (got.count, got.positions.tolist()) == (want.count, want.positions.tolist())

@@ -313,6 +313,143 @@ def test_hamming_plain_chunks_and_blocks(monkeypatch):
     assert whole[0].tolist() == blocks.tolist()
 
 
+# ------------------------------------------- kernel C: want_lines and strict
+
+# tests/test_mxu.py:350-403, the texts cut to one 64 KiB block (interpret
+# mode compiles a smaller grid step there): (text, patterns, cs, -w)
+_LINES_TEXT_W = naive.gen_corpus(13, 60_000, alphabet=b"The fox_y\ndog THE cat")
+_CARRY_TEXT = bytearray(b" " * (384 * 1024))
+_CARRY_TEXT[100:103] = _CARRY_TEXT[200_000:200_003] = _CARRY_TEXT[300_010:300_013] = b"cat"
+_CARRY_TEXT[300_000] = 0x0A
+_TWO_WINDOW_TEXT = naive.gen_corpus(17, 60_000, alphabet=b"the quick brown fox\n")
+LINE_CASES = {
+    "naive": (naive.gen_corpus(11, 60_000, alphabet=b"the fox\ndog cat qx"),
+              (b"the", b"fox", b"dog c", b"qx"), True, False),
+    "i-w": (_LINES_TEXT_W, (b"the", b"fox", b"cat"), False, True),
+    "carry-across-blocks": (bytes(_CARRY_TEXT), (b"cat", b"dogx"), True, False),
+    "two-window": (_TWO_WINDOW_TEXT, (b"quick", _TWO_WINDOW_TEXT[50:72], b"fox"), True, False),
+    "nl-start": (b"a\nb\na\nccc\n" * 40,
+                 tuple(dict.fromkeys([b"\na", b"ccc"] + [b"z%02d" % i for i in range(34)])),
+                 True, False),
+}
+
+
+@pytest.mark.parametrize("name", list(LINE_CASES))
+def test_hamming_lines_match_mxu_want_lines(name):
+    """The Hamming kernel's line mode (plain version) against
+    mxu_multi.scan_count(want_lines=True), the chained route (the union mask
+    into the lines kernel) and naive."""
+    text, patterns, cs, ww = LINE_CASES[name]
+    jst, tst = stage_both(text)
+    c, l = mxu_multi.scan_count(
+        jst.u32, jst.true_len, patterns=patterns, case_sensitive=cs, whole_word=ww,
+        want_lines=True, interpret=True,
+    )
+    total, nlines, counts = mxu.scan_count(
+        tst, patterns=patterns, case_sensitive=cs, whole_word=ww, want_lines=True
+    )
+    assert [int(total), int(nlines)] == [int(c), int(l)]
+    assert int(nlines) == naive.matched_lines(text, union_starts(text, patterns, cs, ww))
+    tables = mxu.device_tables(mxu.build_tables(patterns, cs, ww), CPU)
+    stats, none = mxu.hamming_scan(tst.u8, tst.n_blocks, tables, case_sensitive=cs,
+                                   want_lines=True)
+    chained, mask = mxu.hamming_scan(tst.u8, tst.n_blocks, tables, case_sensitive=cs,
+                                     want_mask=True)
+    assert none is None and torch.equal(stats[:, 0], chained) and torch.equal(counts, chained)
+    assert torch.equal(stats[:, 1:], swar.lines_blocks(tst.u8, mask, tst.n_blocks)[:, 1:])
+    with pytest.raises(ValueError):
+        mxu.hamming_scan(tst.u8, tst.n_blocks, tables, want_lines=True, want_mask=True)
+
+
+def test_hamming_strict_garbage_tail():
+    """tests/test_mxu.py:278-287: strict reads no word flag at or past
+    true_len, so a match ending at true_len stays word-bounded."""
+    text = b"the cat sat" + b"Z" * 50
+    jst = jdispatch.stage(text)
+    c = mxu_multi.scan_count(jst.u32, np.int32(11), patterns=(b"cat", b"sat"),
+                             whole_word=True, strict=True, interpret=True)
+    tst = convert.staged_from_reference(jst._np, len(text), CPU, true_len=11)
+    kw = dict(patterns=(b"cat", b"sat"), whole_word=True)
+    assert int(mxu.scan_count(tst, strict=True, **kw)[0]) == int(c) == 2
+    assert int(mxu.scan_count(tst, **kw)[0]) == 1  # "satZ": the tail is read without strict
+
+
+STRICT_SET = variants(30) + (b"the quick brown fox ju", b"e\0x", b"Holmes")
+
+
+def strict_text() -> bytes:
+    """A block of text with STRICT_SET's members planted at and across
+    the true_len of every view below (n - j for j in STRICT_VIEWS)."""
+    t = bytearray(naive.gen_english(19, 60_000))
+    n = len(t)
+    for j in (0, 1, 17, 4095):
+        t[n - j - 6 : n - j] = b"Holmes"                                # ends at n - j
+        t[n - j - 11 : n - j + 11] = b"the quick brown fox ju"[: 22]     # crosses n - j
+        t[n - j - 40 : n - j - 37] = b"e\0x"
+    return bytes(t)
+
+
+STRICT_VIEWS = [(1, False), (4095, True)]
+
+
+@pytest.mark.parametrize("j,ww", STRICT_VIEWS)
+def test_hamming_strict_matches_mxu_on_with_len_views(j, ww):
+    """strict on with_len(n - j) views whose tail holds live text, with a
+    NUL member: the count and mask of mxu_multi.scan_count(strict=True) and
+    of naive over the first n - j bytes."""
+    text = strict_text()
+    jst = jdispatch.stage(text)
+    jv = jst.with_len(len(text) - j)
+    c, mk = mxu_multi.scan_count(jv.u32, jv.true_len, patterns=STRICT_SET, whole_word=ww,
+                                 strict=True, want_mask=True, interpret=True)
+    tv = convert.staged_from_reference(jst._np, len(text), CPU, true_len=jv.n)
+    total, mask, _ = mxu.scan_count(tv, patterns=STRICT_SET, whole_word=ww, strict=True,
+                                    want_mask=True)
+    head = text[: jv.n]
+    want = sum(len(naive.all_starts(head, p, True, ww)) for p in STRICT_SET)
+    assert int(total) == int(c) == want
+    assert np.array_equal(mask.numpy(), np.asarray(mk).view(np.uint8)[: mask.shape[0]])
+    assert torch.nonzero(mask).squeeze(1).tolist() == union_starts(head, STRICT_SET, True, ww)
+    if j:
+        with pytest.raises(ValueError):  # a NUL member needs strict
+            mxu.scan_count(tv, patterns=STRICT_SET)
+
+
+def test_fused_count_device_strict_on_a_view():
+    """fused_count_device(strict=True) over a with_len view: the Hamming
+    route bounds its starts, the fused route needs no flag."""
+    text = strict_text()
+    view = dispatch.stage(text, CPU).with_len(len(text) - 17)
+    head = text[: view.n]
+    for pats in (variants(40), variants(20)):
+        want = sum(len(naive.all_starts(head, p)) for p in pats)
+        assert multi.fused_count_device(view, pats, True, False, strict=True) == want
+
+
+def test_inkernel_lines_route(monkeypatch):
+    """KREP_TPU_MXU_LINES=inkernel: a Hamming-eligible set of at most 256
+    patterns over a zero-tail text counts its lines in the Hamming kernel;
+    a with_len view without tail_zero, or K > 256, takes the chained route;
+    both routes count the same lines."""
+    calls = []
+    real = mxu.hamming_scan
+    monkeypatch.setattr(mxu, "hamming_scan", lambda *a, **k: calls.append(
+        k.get("want_lines", False)) or real(*a, **k))
+    st = dispatch.stage(TEXT, CPU)
+    pats = mixed_set(40, 3)
+    chained = multi.fused_lines_device(st, pats, True, False)
+    assert calls == [False]
+    monkeypatch.setenv("KREP_TPU_MXU_LINES", "inkernel")
+    calls.clear()
+    assert multi.fused_lines_device(st, pats, True, False) == chained
+    assert calls == [True]
+    calls.clear()
+    multi.fused_lines_device(st.with_len(st.n), pats, True, False)
+    multi.fused_lines_device(st, variants(257), True, False)
+    assert True not in calls
+    assert multi.fused_lines_device(st.with_len(st.n, tail_zero=True), pats, True, False) == chained
+
+
 # ---------------------------------------------------------------- kernel B
 
 @pytest.mark.parametrize("patterns", [(b"\nthe", b"fox", b"e\n"), (b"fox", b"e\n", b"the")])
@@ -488,3 +625,27 @@ def test_cli_matches_krep_tpu(args, tmp_path):
     got = run(cli.main, argv, stdin, device="cpu")
     assert got[1] == 0
     assert got == run(jcli.main, argv, stdin)
+
+
+INKERNEL_ARGSETS = [["-c", "-f", "PATFILE"], ["-w", "-c", "-f", "PATFILE"],
+                    ["-i", "-c", "-f", "PATFILE"]]
+
+
+@pytest.mark.parametrize("args", INKERNEL_ARGSETS, ids=lambda a: " ".join(a))
+def test_cli_inkernel_lines_matches_krep_tpu(args, tmp_path, monkeypatch):
+    """The port's CLI under KREP_TPU_MXU_LINES=inkernel (the Hamming
+    kernel's line mode) against krep_tpu.cli on its default route."""
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(naive.gen_english(18, 30_000))
+    patfile = tmp_path / "pats.txt"
+    patfile.write_bytes(b"\n".join(mixed_set(40, 7)) + b"\n")
+    argv = [str(patfile) if a == "PATFILE" else a for a in args] + [str(corpus)]
+    calls = []
+    real = mxu.hamming_scan
+    monkeypatch.setattr(mxu, "hamming_scan", lambda *a, **k: calls.append(
+        k.get("want_lines")) or real(*a, **k))
+    monkeypatch.setenv("KREP_TPU_MXU_LINES", "inkernel")
+    got = run(cli.main, argv, device="cpu")
+    monkeypatch.delenv("KREP_TPU_MXU_LINES")
+    assert calls == [True]
+    assert got[1] == 0 and got == run(jcli.main, argv)

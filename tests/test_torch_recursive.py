@@ -322,6 +322,7 @@ import krep_tpu_torch.ops.multi, krep_tpu_torch.ops.dfa, krep_tpu_torch.ops.mxu
 import krep_tpu_torch.ops.hostscan, krep_tpu_torch.output.printer
 import krep_tpu_torch.native.runtime
 import krep_tpu_torch.parallel.mesh, krep_tpu_torch.graft_entry
+import krep_tpu_torch.ops.bytescan, krep_tpu_torch.tools.bench_kernel
 bad = sorted(m for m in sys.modules
              if m in ("krep_tpu", "jax") or m.startswith(("krep_tpu.", "jax.", "jaxlib")))
 print("foreign:", bad)
