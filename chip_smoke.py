@@ -47,8 +47,11 @@ mixed 4-20 byte members, config 3c):
                new kernel must have launched;
   5+. shapes  — each new kernel against its plain version, exactly, and
                timed with CUDA events at 1 GiB: the K-pattern scan at K=16
-               and K=64, the Hamming kernel on both sets, the lines kernel
-               on a 1 GiB union mask.
+               and K=64, the Hamming kernel on both sets (each beside its
+               bound and torch._int_mm), the lines kernel on a 1 GiB union
+               mask; then the K-pattern scan against the Hamming kernel on
+               bench.py's sets at K = 16, 32, 48 and 64 (count only, equal
+               counts), the crossover that MXU_MIN_K stands for.
 The recursive slice (-r) adds:
   3r. kernels — the scan kernel's first_line mode and its fix-up kernel
                against their plain versions, exactly, at 64 MiB, with and
@@ -137,8 +140,10 @@ cost-attribution variants, the Hamming kernel's want_lines and strict) add:
                lines_blocks), the count instance, torch.sum and
                torch._int_mm.
 It then prints one JSON line of kernels and, last, the result line. It
-exits non-zero, with no result line, when any phase fails or no card is
-available. Imports nothing of jax.
+exits non-zero, with no result line, when any phase fails; when no card is
+available or the package is missing (a copy of the script run outside the
+repository, from a working directory that is not its root), its last line
+is {"ok": false, "error": ...} naming the cause. Imports nothing of jax.
 """
 
 from __future__ import annotations
@@ -158,7 +163,10 @@ import time
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+HERE = os.path.dirname(os.path.abspath(__file__))
+# the repository: the script's own directory, or (for a copy of the script
+# run elsewhere) the working directory
+ROOT = HERE if os.path.isdir(os.path.join(HERE, "krep_tpu_torch")) else os.getcwd()
 MIB64 = 64 << 20
 MIB16 = 16 << 20
 GIB = 1 << 30
@@ -171,34 +179,6 @@ PATTERNS_16 = [  # bench.py:32-35 (BASELINE config 3)
     b"the", b"quick", b"brown", b"fox", b"jumps", b"over", b"lazy", b"dog",
     b"Sherlock", b"time", b"words", b"some", b"then", b"deeply", b"was", b"more",
 ]
-
-
-def variant_set(k: int) -> tuple[bytes, ...]:
-    """bench.py:362-371 (config 3b at k=64): PATTERNS_16, then numbered
-    variants, at most 8 bytes each."""
-    out = []
-    i = 0
-    while len(out) < k:
-        w = PATTERNS_16[i % 16]
-        r = i // 16
-        p = (w[:5] + str(r).encode() if r else w)[:8]
-        if p not in out:
-            out.append(p)
-        i += 1
-    return tuple(out)
-
-
-def mixed_set() -> tuple[bytes, ...]:
-    """bench.py:417-430 (config 3c): 64 members of 4-20 bytes, some over
-    13 bytes (the Hamming kernel's second window)."""
-    rng = np.random.default_rng(777)
-    out = []
-    while len(out) < 64:
-        ws = [WORDS[int(i)] for i in rng.integers(0, len(WORDS), int(rng.integers(1, 4)))]
-        p = b" ".join(ws)[: int(rng.integers(4, 21))]
-        if len(p) >= 4 and p not in out:
-            out.append(p)
-    return tuple(out)
 
 
 class SmokeFailure(RuntimeError):
@@ -370,12 +350,15 @@ def bound(nbytes: float, ops: float = 0.0, peak_ops: float = 1.0) -> tuple[float
 INT8_PEAK = 1979e12  # H100 SXM dense int8 tensor-core operations per second
 
 
-def int_mm_ms(st, g: torch.Tensor, chunk_words: int = 1 << 22) -> float | None:
+def int_mm_ms(st, g: torch.Tensor, chunk_words: int = 1 << 22,
+              g2: torch.Tensor | None = None) -> float | None:
     """Summed CUDA-event time of torch._int_mm(G, W) over a staged text:
     the Hamming kernel's own int8 G (4Kp, 128) against the window bits W
-    (128, words) of every 4-byte word, in chunks (the whole product does not
-    fit the card's memory). Only the _int_mm calls are timed. None, with
-    the error printed, if this torch's _int_mm takes neither layout of W."""
+    (128, words) of every 4-byte word, and with `g2` (a two-window set's
+    G2, (4 kp_l, rows2)) also G2 against the bits of window bytes 16.., in
+    chunks (the whole product does not fit the card's memory). Only the
+    _int_mm calls are timed. None, with the error printed, if this torch's
+    _int_mm takes neither layout of W."""
     from krep_tpu_torch.ops import mxu
 
     words_total = st.n_blocks * 65536 // 4
@@ -383,27 +366,57 @@ def int_mm_ms(st, g: torch.Tensor, chunk_words: int = 1 << 22) -> float | None:
     column_major = True
     for w0 in range(0, words_total, chunk_words):
         words = torch.arange(w0, min(words_total, w0 + chunk_words), device=st.u8.device)
-        w = mxu._window_bits(st.u8, words, 0, 16).to(torch.int8)  # (128, nw)
-        if column_major:
-            w = w.t().contiguous().t()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        for attempt in (0, 1):
-            try:
-                t0.record()
-                torch._int_mm(g, w)
-                t1.record()
-                break
-            except RuntimeError as e:
-                if attempt or w0 or not column_major:
-                    say(f"library yardstick: torch._int_mm refused the operands: {e}")
-                    return None
-                column_major = False
-                w = w.contiguous()
-        torch.cuda.synchronize()
-        total += t0.elapsed_time(t1)
-        del w
+        pairs = [(g, 0, 16)] + ([] if g2 is None else [(g2, 16, g2.shape[1] // 8)])
+        for gm, j0, nj in pairs:
+            w = mxu._window_bits(st.u8, words, j0, nj).to(torch.int8)  # (8 nj, nw)
+            if column_major:
+                w = w.t().contiguous().t()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            for attempt in (0, 1):
+                try:
+                    t0.record()
+                    torch._int_mm(gm, w)
+                    t1.record()
+                    break
+                except RuntimeError as e:
+                    if attempt or w0 or j0 or not column_major:
+                        say(f"library yardstick: torch._int_mm refused the operands: {e}")
+                        return None
+                    column_major = False
+                    w = w.contiguous()
+            torch.cuda.synchronize()
+            total += t0.elapsed_time(t1)
+            del w
     return total
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """One line per compiled kernel instance of an `nvcc -Xptxas -v` log:
+    its mangled name cut to the kernel and template arguments (the Hamming
+    kernel's as KS1, two windows, mode, G in shared memory), its registers,
+    stack frame and spills."""
+    import re
+
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            h = re.search(r"hamming_scan_kernelILi(\d)ELb(\d)ELi(\d)ELb(\d)", name)
+            if h:
+                ks, two, mode, gs = h.groups()
+                name = (f"hamming_scan_kernel<KS1={ks}, two={two}, "
+                        f"{('count', 'lines', 'strict')[int(mode)]}, G in smem={gs}>")
+            else:
+                k = re.search(r"\d+([a-z_]+kernel)(I\w+?EE)?", name)
+                name = k.group(1) + (k.group(2) or "") if k else name[:80]
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {frame}")
+            name, frame = None, ""
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -603,10 +616,19 @@ def single_pattern_identities(st, patterns, *, case_sensitive=True, whole_word=F
     return total, literal.matched_line_count(union.to(torch.bool), st.u8[:body])
 
 
+def refuse(cause: str) -> int:
+    """Exit code 1 with a last line {"ok": false, "error": cause}."""
+    sys.stderr.write(f"chip_smoke: {cause}\n")
+    print(json.dumps({"ok": False, "error": cause}), flush=True)
+    return 1
+
+
 def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, "krep_tpu_torch")):
+        return refuse(f"the krep_tpu_torch package is missing: neither {HERE} nor the working "
+                      f"directory {os.getcwd()} holds it (run from the repository root)")
     if not torch.cuda.is_available():
-        sys.stderr.write("chip_smoke: torch.cuda.is_available() is False\n")
-        return 1
+        return refuse("no CUDA device: torch.cuda.is_available() is False")
     sys.path.insert(0, ROOT)
     os.environ["KREP_TORCH_DEVICE"] = "cuda"
     os.environ["KREP_TPU_HOST_BREAKEVEN"] = "0"  # the port's runs take the device path
@@ -615,6 +637,8 @@ def main() -> int:
     from krep_tpu_torch import SearchParams, cli, search_string
     from krep_tpu_torch.ops import _build, dispatch, literal, mxu, swar
     from krep_tpu_torch.parallel import lines
+    # bench.py's pattern sets: config 3b's variants, config 3c's mixed members
+    from krep_tpu_torch.tools.bench_hamming import mixed_set, variant_set
 
     dev = torch.device("cuda", 0)
 
@@ -632,9 +656,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     say(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib, ROOT)}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "stack frame" in line:
-            say(f"  ptxas: {line.strip()}")
+    for line in ptxas_lines(lib.with_suffix(".log").read_text()):
+        say(f"  ptxas: {line}")
 
     workdir = tempfile.mkdtemp(prefix="krep_chip_smoke_")
     try:
@@ -1459,9 +1482,20 @@ def main() -> int:
         }
         for name, (k_ms, p_ms) in mtiming.items():
             say(f"timing 1 GiB multi-pattern: {name} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
-        say(f"crossover at K=64 (64 eight-byte variants, 1 GiB, count only): K-pattern scan "
-            f"{mtiming['scan_blocks_multi K=64'][0]:.4f} ms vs Hamming "
-            f"{mtiming['hamming_scan'][0]:.4f} ms [{card}]")
+        # the K-pattern scan / Hamming crossover on bench.py's sets
+        # (variant_set(k): PATTERNS_16, then numbered variants of at most 8
+        # bytes), 1 GiB, count only; both kernels' block counts equal
+        for k in (16, 32, 48, 64):
+            pk = variant_set(k)
+            tk = mxu.device_tables(mxu.build_tables(pk, True), dev)
+            fstats, _ = swar.scan_blocks_multi(st.u8, st.true_len, n_blk, patterns=pk)
+            hcounts, _ = mxu.hamming_scan(st.u8, n_blk, tk)
+            check(torch.equal(fstats[:, 0], hcounts), f"K={k}: the two kernels' counts differ")
+            f_ms = cuda_ms(fused(pk), 3)
+            h_ms = cuda_ms(lambda: mxu.hamming_scan(st.u8, n_blk, tk), 5)
+            say(f"crossover K={k} (bench.py's set, 1 GiB, count only, {int(hcounts.sum())} "
+                f"matches in both): K-pattern scan {f_ms:.4f} ms vs Hamming {h_ms:.4f} ms [{card}]")
+            del fstats, hcounts, tk
         timing.update({k: mtiming[k] for k in ("scan_blocks_multi", "hamming_scan", "lines_blocks")})
         launches.update({k: mlaunches[k] for k in ("scan_blocks_multi", "lines_blocks", "hamming_scan")})
 
@@ -1481,7 +1515,17 @@ def main() -> int:
         library = {"hamming_scan": int_mm_ms(st, g1)}
         say(f"library yardstick: torch._int_mm of the Hamming kernel's G (64 variants, "
             f"{tuple(g1.shape)}) against the window-bit features of 1 GiB, in 4 Mi-word "
-            f"chunks: {library['hamming_scan']:.4f} ms [{card}]")
+            f"chunks: {library['hamming_scan']} ms [{card}]")
+        # the mixed set: G1 over every row and G2 over the long rows
+        mixed_ops = 2 * (tmixed.g1.shape[0] * tmixed.g1.shape[1]
+                         + tmixed.g2.shape[0] * tmixed.g2.shape[1]) * (body // 4)
+        mixed_bound = bound(body + 64 + tmixed.g1_frags.numel() + tmixed.g2_frags.numel()
+                            + tmixed.rows.numel() * 4 + 4 * n_blk, mixed_ops, INT8_PEAK)
+        mixed_lib = int_mm_ms(st, tmixed.g1, g2=tmixed.g2)
+        say(f"mixed set (G1 {tuple(tmixed.g1.shape)}, G2 {tuple(tmixed.g2.shape)}): Hamming "
+            f"{mtiming['hamming_scan mixed'][0]:.4f} ms, bound {mixed_bound[0]:.4f} ms "
+            f"({mixed_bound[1]}); torch._int_mm of G1 and G2 against the window bits of "
+            f"1 GiB: {mixed_lib} ms [{card}]")
 
         # 4s. the bench's strict count (bench.py:397, :439, :468):
         # multi.fused_count_device(staged, pats, True, ww, strict=True) on the

@@ -11,7 +11,7 @@ There is one route per device: a CUDA tensor goes through the CUDA kernels
 plain PyTorch versions.
 
 KREP_TPU_BACKEND (the JAX package's knob, `backend()`) picks the
-single-literal kernel: `auto`, `swar` and `xla` take the SWAR scan
+single-literal kernel: `auto`, `swar`, `xla` and any other value take the SWAR scan
 (csrc/swar_scan.cu), `pallas` the byte-per-thread scan (csrc/byte_scan.cu,
 the port of krep_tpu/ops/pallas_scan.py). The byte scan runs where
 krep_tpu's `_scan_literal_staged` runs pallas_scan (dispatch.py:267-280):
@@ -39,16 +39,13 @@ HALO_ROWS = 32         # 4 KiB forward zero halo
 LANES = 128
 HALO_BYTES = HALO_ROWS * LANES
 GROUP_BYTES = BLOCK_BYTES  # mask readback groups: 64 KiB of text each
-BACKENDS = ("auto", "swar", "xla", "pallas")
 
 
 def backend() -> str:
     """$KREP_TPU_BACKEND (default "auto"): "pallas" selects the byte scan,
-    "auto", "swar" and "xla" the SWAR scan; any other value raises."""
-    mode = os.environ.get("KREP_TPU_BACKEND", "auto")
-    if mode not in BACKENDS:
-        raise ValueError(f"KREP_TPU_BACKEND={mode!r}: expected one of {', '.join(BACKENDS)}")
-    return mode
+    any other value the SWAR scan, as krep_tpu's `_scan_literal_staged`
+    falls through to its default scan for any value it does not name."""
+    return os.environ.get("KREP_TPU_BACKEND", "auto")
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -21,8 +21,8 @@ windows do; -w adds boundary features that ride G's extra columns.
 `build_tables` is a numpy twin of mxu_multi.build_tables (which wraps its
 output in jnp arrays), so both packages use the same tables.
 
-`hamming_scan` launches the CUDA kernel (csrc/hamming_scan.cu, WMMA on the
-int8 tensor cores) on a CUDA tensor and runs `hamming_scan_plain`, the same
+`hamming_scan` launches the CUDA kernel (csrc/hamming_scan.cu, mma.sync
+m16n8k32 on the int8 tensor cores) on a CUDA tensor and runs `hamming_scan_plain`, the same
 products in float32, on a CPU tensor. `LAUNCHES` counts kernel launches,
 `SHARD_LAUNCHES`, `LINES_LAUNCHES` and `STRICT_LAUNCHES` those of them in
 the shard, line and strict modes.
@@ -52,9 +52,12 @@ LINES_LAUNCHES = 0
 STRICT_LAUNCHES = 0
 NO_LIMIT = 1 << 62    # start_limit of the kernel when there is none
 
-# Kernel operand geometry (csrc/hamming_scan.cu).
+# Kernel operand geometry (csrc/hamming_scan.cu): mma.sync m16n8k32 A
+# fragments of 16 rows x 32 feature columns.
 _FRAG = 16
-_KCOLS_WORD = 176     # 128 bit rows + 48 boundary rows
+_KSTEP = 32
+_KCOLS_WORD = 192     # 128 bit rows + 48 boundary rows, padded to six k-steps
+_BOUNDARY = 48        # -w feature rows the kernel reads offsets for
 _NO_BYTE = -128
 
 
@@ -140,23 +143,28 @@ class HammingTables(NamedTuple):
     qs: tuple
     lens: torch.Tensor          # (4Kp,) int32: each row's pattern length
     # kernel operands (csrc/hamming_scan.cu): rows regrouped into a short
-    # and a long section, each padded to 16 rows, as 16x16 fragments
-    g1_frags: torch.Tensor      # (mtiles, KT1, 16, 16) int8
-    g2_frags: torch.Tensor | None  # (mtiles - long_tile0, 8, 16, 16) int8
+    # and a long section (each a whole number of 16-row tiles, every 8-row
+    # group of one phase), as m16n8k32 A fragments in lane order
+    g1_frags: torch.Tensor      # (mtiles, KS1, 32, 16) int8, KS1 = 4, or 6 with -w
+    g2_frags: torch.Tensor | None  # (mtiles - long_tile0, 4, 32, 16) int8
     rows: torch.Tensor          # (16 * mtiles, 4) int32: nb1, nb2, phase, length
     long_tile0: int
     boundary: bytes | None      # byte offsets of the 48 -w feature rows
 
 
 def _fragments(m: np.ndarray, cols: int) -> np.ndarray:
-    """(R, C) -> (R/16, cols/16, 16, 16) row-major 16x16 fragments, the
-    columns zero-padded to `cols`."""
+    """(R, C) -> (R/16, cols/32, 32, 16): the A fragments of mma.sync
+    m16n8k32 (s8, row-major A), the columns zero-padded to `cols`. Lane
+    4g + t of fragment (mt, ks) holds, as its four 32-bit registers, row g
+    and row g + 8 of the 16-row tile at columns 4t..4t+3, then the same
+    rows at columns 16 + 4t..16 + 4t + 3 (PTX ISA, the m16n8k32 fragment
+    layout for .s8): one 16-byte load per lane."""
     r = m.shape[0]
     out = np.zeros((r, cols), np.int8)
     out[:, : m.shape[1]] = m
-    return np.ascontiguousarray(
-        out.reshape(r // _FRAG, _FRAG, cols // _FRAG, _FRAG).transpose(0, 2, 1, 3)
-    )
+    # (mt, hi, g, ks, q, t, i) -> (mt, ks, g, t, q, hi, i)
+    t = out.reshape(r // _FRAG, 2, 8, cols // _KSTEP, 2, 4, 4).transpose(0, 3, 2, 5, 4, 1, 6)
+    return np.ascontiguousarray(t.reshape(r // _FRAG, cols // _KSTEP, 32, 16))
 
 
 def device_tables(tables, device) -> HammingTables:
@@ -177,6 +185,8 @@ def device_tables(tables, device) -> HammingTables:
     rows[real, 0] = nb1[order[real], 0]
     rows[real, 2] = order[real] // Kp
     rows[real, 3] = lens[order[real], 0]
+    # the kernel reads one phase per 8-row group (kp_s and kp_l are multiples of 8)
+    assert (rows[:, 2].reshape(-1, 8) == rows[::8, 2:3]).all()
     g2_frags = None
     if G2 is not None:
         g2k = np.zeros((L, G2.shape[1]), np.int8)
@@ -186,7 +196,7 @@ def device_tables(tables, device) -> HammingTables:
         g2_frags = _fragments(g2k, ROWS)
     boundary = None
     if qs:
-        off = np.full(_KCOLS_WORD - ROWS, _NO_BYTE, np.int8)
+        off = np.full(_BOUNDARY, _NO_BYTE, np.int8)
         for qi, q in enumerate(qs):
             off[4 * qi : 4 * qi + 4] = 4 * q + np.arange(4)
         off[4 * len(qs)] = -1

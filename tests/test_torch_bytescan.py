@@ -234,9 +234,32 @@ def test_backend_knob(monkeypatch):
         assert dispatch.backend() == mode
     monkeypatch.delenv("KREP_TPU_BACKEND")
     assert dispatch.backend() == "auto"
+    # any other value takes the default (SWAR) route, as krep_tpu's does
+    calls = []
+    real = swar.scan_blocks
+    monkeypatch.setattr(swar, "scan_blocks", lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(bytescan, "scan_blocks_bytes", None)  # never reached
     monkeypatch.setenv("KREP_TPU_BACKEND", "mosaic")
-    with pytest.raises(ValueError, match="auto, swar, xla, pallas"):
-        dispatch.backend()
+    monkeypatch.setenv("KREP_TPU_HOST_BREAKEVEN", "0")
+    assert dispatch.backend() == "mosaic"
+    text = naive.gen_english(8, 20_000)
+    got = search_string(SearchParams(patterns=(b"the",), count_mode=True), text, device="cpu")
+    assert calls and got.count == naive.matched_lines(text, naive.all_starts(text, b"the"))
+
+
+@pytest.mark.parametrize("mode", ["mosaic", ""])
+def test_cli_under_unknown_backend_matches_krep_tpu(mode, tmp_path, monkeypatch):
+    """KREP_TPU_BACKEND=<a value neither package names>: the port's CLI
+    gives krep_tpu's stdout and exit code."""
+    small = tmp_path / "small.txt"
+    small.write_bytes(b"the cat\nno match\nthen the end\n")
+    monkeypatch.setenv("KREP_TPU_BACKEND", mode)
+    monkeypatch.setenv("KREP_TPU_HOST_BREAKEVEN", "0")
+    outs = []
+    for main, kw in ((cli.main, dict(device="cpu")), (jcli.main, {})):
+        out = io.BytesIO()
+        outs.append((main(["-c", "the", str(small)], out=out, **kw), out.getvalue()))
+    assert outs[0] == outs[1] == (0, f"{small}:2\n".encode())
 
 
 def test_with_len_view_and_tail_zero():

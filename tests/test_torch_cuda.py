@@ -506,3 +506,72 @@ def test_knobs_on_card_match_cpu(cuda_device, kw, monkeypatch):
         want = search_string(p, text, device="cpu")
         got = search_string(p, text, device=cuda_device)
         assert (got.count, got.positions.tolist()) == (want.count, want.positions.tolist())
+
+
+def hamming_boundary_sets() -> dict:
+    """Pattern sets at the Hamming kernel's layout boundaries, cut from
+    edge_text(13, ...) so they match: one window (K = 32, and K = 33 whose
+    kp_s = 40 is 8 mod 16), two windows with kp_s = 24 and 8 (the reference
+    row order mixes short and long rows in a 16-row tile), K = 64, and a
+    full 256-member pass (G too large for shared memory: read from global
+    memory)."""
+    rng = np.random.default_rng(12)
+    text = edge_text(13, 300_000)
+
+    def cut(lo, hi, k):
+        out = []
+        for i in rng.integers(0, 290_000, 50 * k):
+            p = text[int(i) : int(i) + int(rng.integers(lo, hi + 1))]
+            if p not in out:
+                out.append(p)
+            if len(out) == k:
+                return tuple(out)
+        raise AssertionError("too few distinct members")
+
+    return {
+        "K32": cut(3, 8, 32),
+        "K33": cut(3, 13, 33),
+        "K40-kp24": cut(3, 13, 20) + cut(14, 29, 20),
+        "K33-kp8": cut(1, 13, 5) + cut(14, 29, 28),
+        "K64": cut(4, 13, 32) + cut(14, 20, 32),
+        "K256": cut(1, 13, 128) + cut(14, 29, 128),
+    }
+
+
+HAMMING_SETS = ["K32", "K33", "K40-kp24", "K33-kp8", "K64", "K256"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HAMMING_SETS)
+def test_hamming_modes_on_layout_boundaries(cuda_device, name):
+    """Every mode of the Hamming kernel against hamming_scan_plain, exactly,
+    on the boundary sets, with and without -i and -w: count and mask;
+    want_lines; strict on with_len(n - j) views of a buffer with live text
+    past true_len; start_limit at offsets inside a tile with prev_flag 0
+    and 1."""
+    patterns = hamming_boundary_sets()[name]
+    text = bytearray(edge_text(13, 300_000))
+    for at in (1024 * 7 - 5, 65536 - 9, 65536 * 3 + 1019):  # members across tile edges
+        text[at : at + len(patterns[-1])] = patterns[-1]
+    text = bytes(text)
+    st = dispatch.stage(text, cuda_device)
+    for cs, ww in [(True, False), (False, False), (True, True), (False, True)]:
+        tables = mxu.device_tables(mxu.build_tables(patterns, cs, ww), cuda_device)
+        cases = [dict(want_mask=True), dict(want_lines=True)]
+        cases += [dict(want_mask=True, strict=True, true_len=len(text) - j)
+                  for j in (0, 1, 17, 4095)]
+        cases += [dict(want_mask=True, start_limit=lim, prev_flag=prev)
+                  for lim in (1, 2 * 65536 + 1003, len(text) - 5) for prev in (0, 1)]
+        for kw in cases:
+            u8, n_blocks = st.u8, st.n_blocks
+            if kw.get("strict"):
+                view = st.with_len(kw["true_len"])
+                u8, n_blocks = view.u8, view.n_blocks
+            got = mxu.hamming_scan(u8, n_blocks, tables, case_sensitive=cs, **kw)
+            want = mxu.hamming_scan_plain(u8, n_blocks, tables, case_sensitive=cs, **kw)
+            assert torch.equal(got[0], want[0]), (cs, ww, kw)
+            assert (got[1] is None) == (want[1] is None)
+            if got[1] is not None:
+                assert torch.equal(got[1], want[1]), (cs, ww, kw)
+        counts, _ = mxu.hamming_scan(st.u8, st.n_blocks, tables, case_sensitive=cs)
+        assert int(counts.sum()) == sum(len(naive.all_starts(text, p, cs, ww)) for p in patterns)

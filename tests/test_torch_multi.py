@@ -240,24 +240,38 @@ def test_build_tables_matches_reference(name, ww):
 
 
 def kernel_layout_scan(text: torch.Tensor, n_blocks: int, t: mxu.HammingTables, cs: bool):
-    """The Hamming kernel's arithmetic on its own operands (16x16 fragments,
-    regrouped rows, boundary byte offsets), in numpy: per-word counts and
-    phase flags."""
+    """The Hamming kernel's arithmetic on its own operands, in numpy: G from
+    its m16n8k32 A fragments in lane order, W from the B registers as the
+    kernel builds them (lane 4g + tq, k-step ks, register r: the nibble at
+    bit 4tq + 16r of text word w + ks, spread to bytes; -w flags at the
+    boundary byte offsets), the second window on the long section's rows,
+    each row's phase. Returns per-word counts and phase flags."""
     b = text.numpy() if cs else literal._fold(text).numpy()
     nw = n_blocks * literal.BLOCK_BYTES // 4
-    words = np.arange(nw)
+    words32 = b[: 4 * (nw + 16)].view("<u4").astype(np.uint64)  # the staged halo holds the tail
 
     def untile(frags):
-        mt, kt = frags.shape[:2]
-        return frags.numpy().transpose(0, 2, 1, 3).reshape(16 * mt, 16 * kt).astype(np.float64)
+        """(mt, ks, 32, 16) lane-order fragments -> the (16 mt, 32 ks) matrix."""
+        mt, ks = frags.shape[:2]
+        m = frags.numpy().reshape(mt, ks, 8, 4, 2, 2, 4).transpose(0, 5, 2, 1, 4, 3, 6)
+        return m.reshape(16 * mt, 32 * ks).astype(np.float64)
 
-    def bits(j0):
-        idx = 4 * words[None, :] + np.arange(j0, j0 + 16)[:, None]
-        bits8 = (b[idx][:, None, :] >> np.arange(8)[None, :, None]) & 1
-        return bits8.reshape(128, nw).astype(np.float64)
+    def b_rows(w0):
+        """The B registers of window bytes 4 w0 .. 4 w0 + 15, as 128 W rows."""
+        out = np.zeros((128, nw))
+        for ks in range(4):
+            x = words32[w0 + ks : w0 + ks + nw]
+            for r in range(2):
+                for tq in range(4):
+                    for i in range(4):
+                        shift = np.uint64(4 * tq + 16 * r + i)
+                        out[32 * ks + 16 * r + 4 * tq + i] = (x >> shift) & 1
+        return out
 
-    w1 = [bits(0)]
+    w1 = [b_rows(0)]
     if t.boundary is not None:
+        assert t.g1_frags.shape[1] == 6
+        words = np.arange(nw)
         is_w = literal._is_word_char(torch.from_numpy(b)).numpy()
         rows = []
         for off in np.frombuffer(t.boundary, np.int8):
@@ -267,27 +281,53 @@ def kernel_layout_scan(text: torch.Tensor, n_blocks: int, t: mxu.HammingTables, 
                 pos = 4 * words + off
                 rows.append(np.where(pos >= 0, is_w[pos.clip(0)], 0).astype(np.float64))
         w1.append(np.stack(rows))
+        w1.append(np.zeros((16, nw)))  # features 48..63: zero in B and in G
+    else:
+        assert t.g1_frags.shape[1] == 4
     rows_info = t.rows.numpy()
+    lo = 16 * t.long_tile0
+    # every 8-row group holds one phase; the short section, then the long one
+    assert (rows_info[:, 2].reshape(-1, 8) == rows_info[::8, 2:3]).all()
+    real = rows_info[:, 0] != 1
+    assert (rows_info[:lo, 3][real[:lo]] <= mxu.MAX_LEN).all()
+    assert (rows_info[lo:, 3][real[lo:]] > mxu.MAX_LEN).all()
     hit = untile(t.g1_frags) @ np.concatenate(w1) == rows_info[:, :1]
     if t.g2_frags is not None:
-        lo = 16 * t.long_tile0
-        hit[lo:] &= untile(t.g2_frags) @ bits(16) == rows_info[lo:, 1:2]
+        assert t.g2_frags.shape[:2] == (t.g1_frags.shape[0] - t.long_tile0, 4)
+        hit[lo:] &= untile(t.g2_frags) @ b_rows(4) == rows_info[lo:, 1:2]
     flags = np.zeros((4, nw), bool)
     for p in range(4):
         flags[p] = hit[rows_info[:, 2] == p].any(0)
     return hit.sum(0), flags
 
 
+LONGS = tuple(p for p in mixed_set(200, 3) if len(p) > mxu.MAX_LEN)
+LAYOUT_SETS = {
+    **SETS_C,
+    # kp_s = 8: the reference's row tile 0 holds 8 short and 8 long rows
+    "kp_s-8-mod-16": variants(5) + LONGS[:28],
+    # kp_s = 24, kp_l = 8: its row tiles 1, 3, ... mix short and long rows
+    "short-long-share-tile": variants(20) + LONGS[:6],
+}
+
+
 @pytest.mark.parametrize("ww", [False, True], ids=["plain", "w"])
-@pytest.mark.parametrize("name", list(SETS_C))
+@pytest.mark.parametrize("name", list(LAYOUT_SETS))
 def test_kernel_operands_reproduce_plain(name, ww):
     """The CUDA kernel's operands, used the way the kernel uses them, give
-    the plain version's counts and mask."""
-    patterns = SETS_C[name]
+    the plain version's counts and mask; on the sets whose reference row
+    order mixes short and long rows in a 16-row tile, the kernel's does
+    not."""
+    patterns = LAYOUT_SETS[name]
     text = naive.gen_english(14, 3000) + b"\n".join(patterns) + b" x"
     for cs in (True, False):
         tst = dispatch.stage(text if cs else text.upper(), CPU)
         tables = mxu.device_tables(mxu.build_tables(patterns, cs, ww), CPU)
+        if name not in SETS_C:
+            assert tables.kp_s % 16 == 8
+            lens = tables.lens.numpy().reshape(-1, 16)
+            short, long_ = lens <= mxu.MAX_LEN, (lens > mxu.MAX_LEN) & (lens < 1 << 20)
+            assert (short.any(1) & long_.any(1)).any()
         per_word, flags = kernel_layout_scan(tst.u8, tst.n_blocks, tables, cs)
         counts, mask = mxu.hamming_scan_plain(
             tst.u8, tst.n_blocks, tables, case_sensitive=cs, want_mask=True
