@@ -29,11 +29,13 @@ Phases, each printing what it found:
 The multi-pattern slice (-e/-f) adds, with bench.py's pattern sets rebuilt
 here (PATTERNS_16, config 3; its 64 eight-byte variants, config 3b; 64
 mixed 4-20 byte members, config 3c):
-  3+. kernels — the K-pattern scan (K = 2, 16, 64), the Hamming kernel (the
-               64-variant and mixed sets) and the lines kernel (on both
-               routes' union masks, with and without a '\n'-leading member)
-               against their plain versions, exactly, at 64 MiB, with and
-               without -i and -w;
+  3+. kernels — the K-pattern scan (K = 2, 16, 64, the 64 members of one
+               4-byte prefix and a set that collides in its filter map;
+               each in its count and mask instances), the
+               Hamming kernel (the 64-variant and mixed sets) and the lines
+               kernel (on both routes' union masks, with and without a
+               '\n'-leading member) against their plain versions, exactly,
+               at 64 MiB, with and without -i and -w;
   4+. main path — the port's CLI with several patterns: on 1 GiB, `-c -o`
                and `-c` with the 16 literals, `-c -o` with the 64 variants,
                `-c -o`, `-w -c -o` and `-c` with the mixed set, each held to
@@ -49,8 +51,10 @@ mixed 4-20 byte members, config 3c):
                timed with CUDA events at 1 GiB: the K-pattern scan at K=16
                and K=64, the Hamming kernel on both sets (each beside its
                bound and torch._int_mm), the lines kernel on a 1 GiB union
-               mask; then the K-pattern scan against the Hamming kernel on
-               bench.py's sets at K = 16, 32, 48 and 64 (count only, equal
+               mask; the K-pattern scan's count and mask instances at K = 2,
+               16 and 64 on the corpus and on 1 GiB of a-z text, each beside
+               its bound; then the K-pattern scan against the Hamming kernel
+               on bench.py's sets at K = 16, 32, 48 and 64 (count only, equal
                counts), the crossover that MXU_MIN_K stands for.
 The recursive slice (-r) adds:
   3r. kernels — the scan kernel's first_line mode and its fix-up kernel
@@ -83,7 +87,7 @@ The sharded slice (parallel/mesh.py, -t) adds:
                64 MiB, on text with a match across the start limit and one
                at byte 0: the K-pattern scan with start_limit and prev_word
                (K = 2, 16, 64; with and without -i and -w; prev_word 0 and
-               1) and the Hamming kernel with start_limit and prev_flag (the
+               1; its count and mask instances) and the Hamming kernel with start_limit and prev_flag (the
                64-variant and mixed sets, with and without -w);
   4m. main path — search_string and the CLI on a machine that names this
                card 4 times (mesh.devices patched to (cuda:0,) * 4), so the
@@ -394,8 +398,9 @@ def int_mm_ms(st, g: torch.Tensor, chunk_words: int = 1 << 22,
 def ptxas_lines(log: str) -> list[str]:
     """One line per compiled kernel instance of an `nvcc -Xptxas -v` log:
     its mangled name cut to the kernel and template arguments (the Hamming
-    kernel's as KS1, two windows, mode, G in shared memory), its registers,
-    stack frame and spills."""
+    kernel's as KS1, two windows, mode, G in shared memory; the K-pattern
+    scan's as -i fold, -w, mask, shard), its registers, stack frame and
+    spills."""
     import re
 
     out, name, frame = [], None, ""
@@ -404,10 +409,14 @@ def ptxas_lines(log: str) -> list[str]:
         if m:
             name = m.group(1)
             h = re.search(r"hamming_scan_kernelILi(\d)ELb(\d)ELi(\d)ELb(\d)", name)
+            k = re.search(r"scan_blocks_multi_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
             if h:
                 ks, two, mode, gs = h.groups()
                 name = (f"hamming_scan_kernel<KS1={ks}, two={two}, "
                         f"{('count', 'lines', 'strict')[int(mode)]}, G in smem={gs}>")
+            elif k:
+                name = "scan_blocks_multi_kernel<fold={}, word={}, mask={}, shard={}>".format(
+                    *k.groups())
             else:
                 k = re.search(r"\d+([a-z_]+kernel)(I\w+?EE)?", name)
                 name = k.group(1) + (k.group(2) or "") if k else name[:80]
@@ -532,10 +541,10 @@ def naive_starts(text: bytes, pattern: bytes, whole_word: bool) -> list[int]:
 
 def multi_kernels_vs_plain(st, max_err, say_prefix: str, *, patterns, case_sensitive,
                            whole_word, route: str):
-    """One multi-pattern kernel ("fused": scan_blocks_multi, "hamming":
-    hamming_scan) and the lines kernel on its union mask against their plain
-    versions; folds the differences into max_err, returns the kernel's
-    (per-block counts, mask)."""
+    """One multi-pattern kernel ("fused": scan_blocks_multi, its mask and
+    count instances; "hamming": hamming_scan) and the lines kernel on its
+    union mask against their plain versions; folds the differences into
+    max_err, returns the kernel's (per-block counts, mask)."""
     from krep_tpu_torch.ops import literal, mxu, swar
 
     kw = dict(case_sensitive=case_sensitive, whole_word=whole_word, want_mask=True)
@@ -544,7 +553,9 @@ def multi_kernels_vs_plain(st, max_err, say_prefix: str, *, patterns, case_sensi
         pstats, pmask = literal.block_stats_multi(
             st.u8, st.true_len, st.n_blocks, patterns=patterns, **kw)
         name, counts = "scan_blocks_multi", stats[:, 0]
-        err = int((stats - pstats).abs().max())
+        kw["want_mask"] = False  # the count instance of the same set
+        cstats, _ = swar.scan_blocks_multi(st.u8, st.true_len, st.n_blocks, patterns=patterns, **kw)
+        err = max(int((stats - pstats).abs().max()), int((cstats - pstats).abs().max()))
     else:
         tables = mxu.device_tables(mxu.build_tables(patterns, case_sensitive, whole_word), st.u8.device)
         kw.pop("whole_word")  # built into the tables
@@ -566,9 +577,10 @@ def multi_kernels_vs_plain(st, max_err, say_prefix: str, *, patterns, case_sensi
 def shard_modes_vs_plain(st, max_err, route: str, true_len, start_limit: int, prev: int, *,
                          patterns, case_sensitive, whole_word):
     """One kernel in its shard mode ("fused": scan_blocks_multi with
-    start_limit and prev_word; "hamming": hamming_scan with start_limit and
-    prev_flag) against its plain version on a staged text; folds the
-    difference into max_err and returns [matches, set mask bytes]."""
+    start_limit and prev_word, its mask and count instances; "hamming":
+    hamming_scan with start_limit and prev_flag) against its plain version
+    on a staged text; folds the difference into max_err and returns
+    [matches, set mask bytes]."""
     from krep_tpu_torch.ops import literal, mxu, swar
 
     if route == "fused":
@@ -577,7 +589,9 @@ def shard_modes_vs_plain(st, max_err, route: str, true_len, start_limit: int, pr
         stats, mask = swar.scan_blocks_multi(st.u8, true_len, st.n_blocks, **kw)
         pstats, pmask = literal.block_stats_multi(st.u8, true_len, st.n_blocks, **kw)
         name, counts = "scan_blocks_multi shard", stats[:, 0]
-        err = int((stats - pstats).abs().max())
+        cstats, _ = swar.scan_blocks_multi(st.u8, true_len, st.n_blocks,
+                                           **dict(kw, want_mask=False))
+        err = max(int((stats - pstats).abs().max()), int((cstats - pstats).abs().max()))
     else:
         tables = mxu.device_tables(mxu.build_tables(patterns, case_sensitive, whole_word),
                                    st.u8.device)
@@ -639,6 +653,9 @@ def main() -> int:
     from krep_tpu_torch.parallel import lines
     # bench.py's pattern sets: config 3b's variants, config 3c's mixed members
     from krep_tpu_torch.tools.bench_hamming import mixed_set, variant_set
+    # sets that stress the K-pattern scan's verify: one 4-byte prefix for 64
+    # members, members that collide in its filter map
+    from krep_tpu_torch.tools.bench_multi import collision_set, common_prefix_set
 
     dev = torch.device("cuda", 0)
 
@@ -743,7 +760,8 @@ def main() -> int:
         by_set = {}
         n_multi = 0
         for route, pats in (("fused", (b"the", b"fox")), ("fused", pats16), ("fused", pats64),
-                            ("hamming", pats64), ("hamming", pats_mixed)):
+                            ("hamming", pats64), ("hamming", pats_mixed),
+                            ("fused", common_prefix_set()), ("fused", collision_set())):
             for cs in (True, False):
                 for ww in (False, True):
                     out = multi_kernels_vs_plain(
@@ -1482,6 +1500,24 @@ def main() -> int:
         }
         for name, (k_ms, p_ms) in mtiming.items():
             say(f"timing 1 GiB multi-pattern: {name} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
+        # the K-pattern scan's count and mask instances at K = 2, 16, 64 on
+        # the corpus and on 1 GiB of a-z text (rare matches; its K=64 case
+        # exact against plain first), each beside its bound
+        az = dispatch.stage(np.random.default_rng(0).integers(97, 123, GIB, dtype=np.uint8), dev)
+        multi_kernels_vs_plain(az, max_err, "kernels vs plain at 1 GiB of a-z", patterns=pats64,
+                               case_sensitive=True, whole_word=False, route="fused")
+        check(max(max_err.values()) == 0, f"K-pattern scan != plain on a-z: {max_err}")
+        for tname, tst in (("corpus", st), ("a-z", az)):
+            for pk in ((b"the", b"fox"), pats16, pats64):
+                for want_mask in (False, True):
+                    k_ms = cuda_ms(lambda: swar.scan_blocks_multi(
+                        tst.u8, tst.true_len, tst.n_blocks, patterns=pk, want_mask=want_mask), 5)
+                    b_ms, b_by = bound((2 if want_mask else 1) * tst.n_blocks * 65536 + 64
+                                       + swar.MULTI_TABLE_BYTES + 32 * tst.n_blocks)
+                    say(f"timing 1 GiB {tname}: scan_blocks_multi K={len(pk)} "
+                        f"{'mask' if want_mask else 'count'} {k_ms:.4f} ms, bound {b_ms:.4f} ms "
+                        f"({b_by}) [{card}]")
+        del az, tst
         # the K-pattern scan / Hamming crossover on bench.py's sets
         # (variant_set(k): PATTERNS_16, then numbered variants of at most 8
         # bytes), 1 GiB, count only; both kernels' block counts equal
@@ -1507,7 +1543,7 @@ def main() -> int:
         bounds = {
             "scan_blocks": bound(body + 64 + 32 * st.n_blocks),
             "combine_blocks": bound(32 * st.n_blocks + 32),
-            "scan_blocks_multi": bound(body + 64 + swar.PATTERN_SET_BYTES + 32 * n_blk),
+            "scan_blocks_multi": bound(body + 64 + swar.MULTI_TABLE_BYTES + 32 * n_blk),
             "lines_blocks": bound(2 * body + 32 * n_blk),
             "hamming_scan": bound(body + 64 + t64.g1_frags.numel() + t64.rows.numel() * 4
                                   + 4 * n_blk, hamming_ops, INT8_PEAK),
@@ -1763,7 +1799,7 @@ def main() -> int:
         }
         sbody = sh.n_blocks * 65536
         shard_bounds = {
-            "scan_blocks_multi shard": bound(sbody + 64 + swar.PATTERN_SET_BYTES
+            "scan_blocks_multi shard": bound(sbody + 64 + swar.MULTI_TABLE_BYTES
                                              + 32 * sh.n_blocks),
             "hamming_scan shard": bound(
                 sbody + 64 + t64s.g1_frags.numel() + t64s.rows.numel() * 4 + 4 * sh.n_blocks,

@@ -1,7 +1,8 @@
 // Pieces shared by the port's scan kernels (swar_scan.cu, multi_scan.cu,
 // lines_scan.cu, hamming_scan.cu, byte_scan.cu): the 64 KiB block geometry, the
-// line-accounting summary and its ordered fold, the ASCII fold and the
-// word-byte test.
+// line-accounting summary and its ordered fold (byte by byte, or 32
+// positions at a time from bit words), the ASCII fold, the word-byte test,
+// and the coalesced store of a start bitmap as a 0/1 byte mask.
 
 #pragma once
 
@@ -93,6 +94,50 @@ __device__ __forceinline__ void walk_step(Summary& s, int& state, int n, int nl)
   }
   state = nl ? 0 : (state | hit);
   s.has_nl |= nl;
+}
+
+// Newline flags of the 4 bytes of a little-endian text word, as bits 0..3.
+__device__ __forceinline__ uint32_t newline_bits4(uint32_t w) {
+  const uint32_t e = __vcmpeq4(w, 0x0A0A0A0Au) & 0x01010101u;
+  return (e * 0x01020408u) >> 24;  // byte i's flag to bit 24 + i; no carries
+}
+
+// walk_step over 32 positions at once, from bit words (bit j: position j):
+// `hits` the union starts, `nl` the newlines that count. `state` is the
+// open line's flag before and after them; `count` is left to the caller.
+// The flag entering position j is the carry into bit j of gen + prop +
+// state, where a hit off a newline generates it and every non-newline
+// propagates it (a newline clears it, also when a match starts on it).
+__device__ __forceinline__ void fold_bits(Summary& s, uint32_t& state, uint32_t hits, uint32_t nl) {
+  const uint32_t gen = hits & ~nl, prop = ~nl;
+  const uint64_t sum = uint64_t(gen) + prop + state;
+  const uint32_t open = uint32_t(sum) ^ gen ^ prop;  // bit j: the line open at j has a match
+  s.first += __popc(hits & ~open);
+  const uint32_t upto = nl ? nl ^ (nl - 1) : ~0u;    // positions through the first newline
+  s.lead |= !s.has_nl && (hits & upto) != 0;
+  s.has_nl |= nl != 0;
+  state = uint32_t(sum >> 32);
+}
+
+// The 0/1 bytes of a nibble's 4 bits (the four shifted copies do not overlap).
+__device__ __forceinline__ uint32_t spread4(uint32_t nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+// Writes a block's start bitmap `bits` (bit o%32 of word o/32: a start at
+// block offset o, in shared memory) as its kBlockBytes 0/1 mask bytes at
+// `out`: 16-byte stores, consecutive threads at consecutive addresses, so a
+// warp stores 512 contiguous bytes at once. Every thread of the block calls
+// it, after the bitmap is complete.
+__device__ __forceinline__ void store_mask_bits(const uint32_t* bits, uint8_t* out) {
+#pragma unroll 4
+  for (int i = 0; i < kBlockBytes / 16 / kThreads; ++i) {
+    const int c = i * kThreads + threadIdx.x;  // 16-byte chunk
+    const uint32_t b = bits[c >> 1] >> (16 * (c & 1));
+    reinterpret_cast<uint4*>(out)[c] =
+        make_uint4(spread4(b & 15), spread4((b >> 4) & 15), spread4((b >> 8) & 15),
+                   spread4((b >> 12) & 15));
+  }
 }
 
 // Folds the block's thread summaries in thread order (the threads walk

@@ -13,7 +13,10 @@ Port of krep_tpu/ops/pallas_swar.py (`scan_literal`, `scan_shard`,
   scan_blocks_multi  the same for up to 64 patterns in one pass: the summed
                      match count, and the union mask and line state, with
                      the shard stats of `scan_shard_multi` (start_limit,
-                     prev_word) for the sharded route (parallel/mesh.py);
+                     prev_word) for the sharded route (parallel/mesh.py),
+                     from a filter map, buckets and member words that
+                     `multi_tables` builds once per set and
+                     `device_multi_tables` keeps on the card;
   lines_blocks       the same summaries from a precomputed 0/1 start mask;
   combine_blocks     one block that folds the summaries in text order into
                      the match count, the matched-line count and the shard
@@ -30,6 +33,8 @@ so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -174,30 +179,96 @@ def first_line_fixup(stats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return mask
 
 
-# Byte layout of the kernel's PatternSet (csrc/multi_scan.cu).
-_SET_BYTES, _SET_LEN, _SET_MAP, _SET_OFF, _SET_BUCKET, PATTERN_SET_BYTES = (
-    0, 4096, 4352, 4384, 4648, 4712,
+# Byte layout of the K-pattern kernel's tables (csrc/multi_scan.cu MultiTables).
+_T_MAP, _T_WORDS, _T_LEN, _T_LIST, _T_OFF, _T_MULT, _T_PRESENT, MULTI_TABLE_BYTES = (
+    0, 4096, 8192, 8256, 8320, 9360, 9376, 9392,
 )
+MAP_BITS = 15           # filter map bits
+BUCKET_BITS = 8         # buckets per prefix length: the top bits of key * bucket multiplier
+HASH_MULT = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F)  # prefix lengths 1..4
+MULT_TRIES = 4096       # bucket multipliers tried per prefix length
 
 
-def _pattern_set(patterns: tuple[bytes, ...]) -> np.ndarray:
-    """The kernel's pattern set: each pattern's bytes and length, a bitmap
-    of first bytes, and the pattern indices grouped by first byte
-    (bucket of byte c = bucket[off[c]:off[c + 1]])."""
-    buf = np.zeros(PATTERN_SET_BYTES, np.uint8)
-    pb = buf[_SET_BYTES:_SET_LEN].reshape(MAX_PATTERNS, MAX_PATTERN)
-    for k, p in enumerate(patterns):
-        pb[k, : len(p)] = np.frombuffer(p, np.uint8)
-    buf[_SET_LEN:_SET_MAP].view(np.int32)[: len(patterns)] = [len(p) for p in patterns]
-    first = np.array([p[0] for p in patterns], np.int64)
-    seen = np.zeros(256, bool)
-    seen[first] = True
-    buf[_SET_MAP:_SET_OFF] = np.packbits(seen, bitorder="little")
-    buf[_SET_OFF : _SET_OFF + 257] = np.concatenate(
-        [[0], np.cumsum(np.bincount(first, minlength=256))]
+def prefix_hash(prefix: bytes, mult: int | None = None) -> int:
+    """The kernel's hash of a member's first l = min(m, 4) bytes: their
+    little-endian value times `mult` (by default HASH_MULT[l - 1], the
+    filter's), mod 2**32."""
+    mult = HASH_MULT[len(prefix) - 1] if mult is None else mult
+    return int.from_bytes(prefix, "little") * mult & 0xFFFFFFFF
+
+
+def map_bit(prefix: bytes, joint: bool = True) -> int:
+    """The filter map bit of a member's prefix (its first min(m, 4) bytes):
+    bit (h >> 17) % 32 of map word w >> 22, where h is the prefix's hash
+    and w the hash of its first 3 bytes for a 4-byte prefix in a set with
+    prefixes of 3 and of 4 bytes (`joint`: the two lengths share one map
+    word per position), else h."""
+    h = prefix_hash(prefix)
+    w = prefix_hash(prefix[:3]) if len(prefix) == 4 and joint else h
+    return (w >> 22) * 32 + (h >> 17) % 32
+
+
+def bucket_mult(keys) -> int:
+    """The bucket multiplier of one prefix length: the first of HASH_MULT's
+    constant and MULT_TRIES - 1 fixed odd numbers under which the fewest
+    distinct keys share a bucket (the top BUCKET_BITS bits of key * mult,
+    mod 2**32); none do where one exists."""
+    keys = np.unique(np.asarray(keys, np.uint64))
+    rng = np.random.default_rng(len(keys))
+    mults = np.concatenate([[HASH_MULT[0]], rng.integers(0, 1 << 31, MULT_TRIES - 1) * 2 + 1])
+    b = np.sort((keys[None, :] * mults[:, None].astype(np.uint64) & np.uint64(0xFFFFFFFF))
+                >> np.uint64(32 - BUCKET_BITS), axis=1)
+    shared = (b[:, 1:] == b[:, :-1]).sum(1)
+    return int(mults[int(np.argmin(shared))])
+
+
+def multi_tables(patterns: tuple[bytes, ...]) -> np.ndarray:
+    """The K-pattern kernel's tables for `patterns` (already folded for -i):
+    the 2**15-bit filter map (map_bit of each member), the members' 4-byte
+    words word-major (word i of member k at [i][k], zero past the member's
+    length) and their lengths, each prefix length's bucket multiplier
+    (bucket_mult), the member indices sorted by bucket (256 (l - 1) + the
+    top 8 bits of key * multiplier) with the buckets' offsets, and the
+    prefix lengths the set has (bit l - 1)."""
+    buf = np.zeros(MULTI_TABLE_BYTES, np.uint8)
+    k = len(patterns)
+    plen = [min(len(p), 4) for p in patterns]
+    joint = {3, 4} <= set(plen)
+    bits = np.zeros(1 << MAP_BITS, bool)
+    bits[[map_bit(p[:4], joint) for p in patterns]] = True
+    buf[_T_MAP:_T_WORDS] = np.packbits(bits, bitorder="little")
+    rows = np.zeros((MAX_PATTERNS, MAX_PATTERN), np.uint8)
+    for i, p in enumerate(patterns):
+        rows[i, : len(p)] = np.frombuffer(p, np.uint8)
+    buf[_T_WORDS:_T_LEN] = rows.view("<u4").T.copy().view(np.uint8).reshape(-1)
+    buf[_T_LEN : _T_LEN + k] = [len(p) for p in patterns]
+    keys = [int.from_bytes(p[:n], "little") for p, n in zip(patterns, plen)]
+    mults = [bucket_mult([q for q, n in zip(keys, plen) if n == l]) for l in range(1, 5)]
+    buf[_T_MULT : _T_MULT + 16] = np.array(mults, "<u4").view(np.uint8)
+    nb = 1 << BUCKET_BITS
+    bucket = np.array([nb * (n - 1) + (prefix_hash(p[:n], mults[n - 1]) >> (32 - BUCKET_BITS))
+                       for p, n in zip(patterns, plen)], np.int64)
+    buf[_T_LIST : _T_LIST + k] = np.argsort(bucket, kind="stable")
+    buf[_T_OFF : _T_OFF + 4 * nb + 1] = np.concatenate(
+        [[0], np.cumsum(np.bincount(bucket, minlength=4 * nb))]
     )
-    buf[_SET_BUCKET : _SET_BUCKET + len(patterns)] = np.argsort(first, kind="stable")
+    buf[_T_PRESENT : _T_PRESENT + 4] = np.array([sum(1 << (n - 1) for n in set(plen))],
+                                                "<u4").view(np.uint8)
     return buf
+
+
+def device_multi_tables(patterns, case_sensitive: bool, device) -> torch.Tensor:
+    """multi_tables of the set as the kernel sees it (folded for -i), on
+    `device`, built and copied once per (folded set, case, device): `-r -c
+    -e` launches the kernel once per file."""
+    pats = tuple(patterns) if case_sensitive else tuple(literal.fold_bytes_host(p) for p in patterns)
+    return _cached_tables(pats, bool(case_sensitive), torch.device(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _cached_tables(patterns: tuple[bytes, ...], case_sensitive: bool,
+                   device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(multi_tables(patterns)).to(device)
 
 
 def scan_blocks_multi(
@@ -219,7 +290,8 @@ def scan_blocks_multi(
     start mask (None unless want_mask). `text` as for scan_blocks. With a
     `start_limit` (the shard mode, `MULTI_SHARD_LAUNCHES`), starts and the
     newlines that count lie below it; `prev_word` is the -w flag of the
-    byte before the text (see literal.block_stats_multi)."""
+    byte before the text (see literal.block_stats_multi). The kernel's
+    tables come from device_multi_tables."""
     if not 1 <= len(patterns) <= MAX_PATTERNS:
         raise ValueError(f"{len(patterns)} patterns outside 1..{MAX_PATTERNS}")
     if any(not 1 <= len(p) <= MAX_PATTERN for p in patterns):
@@ -236,15 +308,14 @@ def scan_blocks_multi(
     from . import _build
 
     _check_cuda(text, torch.uint8, "text")
-    pats = patterns if case_sensitive else tuple(literal.fold_bytes_host(p) for p in patterns)
-    pset = torch.from_numpy(_pattern_set(pats)).to(text.device)
+    tables = device_multi_tables(patterns, case_sensitive, text.device)
     stats = torch.empty((n_blocks, STAT_WORDS), dtype=torch.int32, device=text.device)
     mask = torch.empty(body, dtype=torch.uint8, device=text.device) if want_mask else None
     shard = start_limit is not None
     stream = torch.cuda.current_stream(text.device).cuda_stream
     with torch.cuda.device(text.device):
         err = _build.library().krep_scan_blocks_multi(
-            text.data_ptr(), n_blocks, pset.data_ptr(), int(not case_sensitive),
+            text.data_ptr(), n_blocks, tables.data_ptr(), int(not case_sensitive),
             int(whole_word), int(true_len), int(bool(prev_word)),
             int(start_limit) if shard else NO_LIMIT, int(shard),
             None if mask is None else mask.data_ptr(), stats.data_ptr(), stream,

@@ -15,14 +15,13 @@ limit. Exits 1 without a card or when a result differs.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
 from ..ops import dispatch, mxu
-from .bench_kernel import event_ms
+from .bench_kernel import card_name, event_ms
 
 WORDS = (
     b"the quick brown fox jumps over a lazy dog and then some more words "
@@ -88,9 +87,7 @@ def main(argv: list[str] | None = None, reps: int = 5) -> int:
         sys.stderr.write("bench_hamming: needs a CUDA device\n")
         return 1
     dev = torch.device("cuda", torch.cuda.current_device())
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip().splitlines()[:1]
-    card = card[0] if card else torch.cuda.get_device_name(0)
+    card = card_name()
     ok = True
     for label, data in (("config-1 corpus", corpus(size)),
                         ("a-z", np.random.default_rng(0).integers(97, 123, size, dtype=np.uint8))):

@@ -14,6 +14,7 @@ PyTorch call computing the same wrapped sum. Exits 1 without a card.
 
 from __future__ import annotations
 
+import subprocess
 import sys
 import time
 
@@ -24,6 +25,14 @@ from ..ops import bytescan, dispatch
 from ..parallel import lines
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+
+
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi gives them (else
+    torch's device name), for every timing line."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[:1]
+    return out[0] if out else torch.cuda.get_device_name(0)
 
 
 def event_ms(fn, reps: int) -> float:

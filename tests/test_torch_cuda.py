@@ -17,6 +17,7 @@ from krep_tpu_torch import SearchParams, search_string
 from krep_tpu_torch.engine import search as search_mod
 from krep_tpu_torch.ops import bytescan, dispatch, literal, multi, mxu, swar
 from krep_tpu_torch.parallel import lines
+from krep_tpu_torch.tools import bench_hamming, bench_multi
 
 
 @pytest.fixture
@@ -191,6 +192,61 @@ def test_hamming_kernel_256_patterns_two_windows(cuda_device):
         want = mxu.hamming_scan_plain(st.u8, st.n_blocks, tables, case_sensitive=False,
                                       want_mask=True)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def multi_edge_text(kind: str, patterns, size: int = 64 << 20) -> np.ndarray:
+    """64 MiB (1,024 blocks) of the config-1 corpus (a match every few
+    bytes) or a-z text (few), with members of `patterns` planted to start
+    on the last byte of a block and of a thread's 256-byte span, on the
+    first byte of a block, and at the text's end."""
+    if kind == "corpus":
+        text = bench_hamming.corpus(size)
+    else:
+        text = np.random.default_rng(3).integers(97, 123, size, dtype=np.uint8)
+    rng = np.random.default_rng(4)
+    for i, at in enumerate(list(range(65535, size - 100, 65536 * 7))
+                           + list(range(65536 * 3 + 255, size - 100, 65536 * 5 + 256 * 3))
+                           + list(range(65536 * 2, size - 100, 65536 * 11))):
+        p = patterns[int(rng.integers(len(patterns)))]
+        text[at : at + len(p)] = np.frombuffer(p, np.uint8)
+    last = patterns[-1]
+    text[size - len(last) :] = np.frombuffer(last, np.uint8)
+    return text
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["corpus", "a-z"])
+@pytest.mark.parametrize("name", ["16 literals", "common prefix", "collision"])
+def test_multi_scan_instances_match_plain(cuda_device, kind, name):
+    """Every template instance of the K-pattern scan (count and mask, -i,
+    -w, the shard mode) against literal.block_stats_multi, exactly, over
+    1,024 blocks: bench.py's 16 literals, 64 members that share one 4-byte
+    prefix (one candidate, 64 items) and a set that collides in the
+    filter map; members start on the last byte of blocks and of thread
+    spans; the shard's start limit lies inside a thread's span."""
+    patterns = {"16 literals": tuple(bench_hamming.PATTERNS_16),
+                "common prefix": bench_multi.common_prefix_set(),
+                "collision": bench_multi.collision_set()}[name]
+    st = dispatch.stage(multi_edge_text(kind, patterns), cuda_device)
+    assert st.n_blocks == 1024
+    limit = st.n_blocks * 65536 - 12_345
+    assert limit % 256 not in (0, 255)
+    tl = limit + max(map(len, patterns)) - 1
+    for _, cs, ww, want_mask, shard in bench_multi.instances():
+        kw = dict(patterns=patterns, case_sensitive=cs, whole_word=ww, want_mask=want_mask,
+                  prev_word=int(shard), start_limit=limit if shard else None)
+        true_len = tl if shard else st.true_len
+        before = (swar.MULTI_LAUNCHES, swar.MULTI_SHARD_LAUNCHES)
+        stats, mask = swar.scan_blocks_multi(st.u8, true_len, st.n_blocks, **kw)
+        assert (swar.MULTI_LAUNCHES, swar.MULTI_SHARD_LAUNCHES) == (before[0] + 1,
+                                                                    before[1] + int(shard))
+        pstats, pmask = literal.block_stats_multi(st.u8, true_len, st.n_blocks, **kw)
+        assert torch.equal(stats, pstats), (cs, ww, want_mask, shard)
+        assert (mask is None) == (not want_mask)
+        if want_mask:
+            assert torch.equal(mask, pmask), (cs, ww, shard)
+        if kind == "corpus" and not ww:
+            assert int(stats[:, 0].sum()) > 100_000
 
 
 MULTI_MODES = [

@@ -15,6 +15,7 @@ texts held to them hold no "^", and "_^" cases are held to tests/naive.py.
 import io
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -156,23 +157,265 @@ def test_block_stats_multi_across_blocks():
 
 
 def test_pattern_set_layout():
-    """The kernel's pattern set: lengths, the first-byte bitmap and the
-    buckets that group pattern indices by first byte."""
-    patterns = (b"the", b"a", b"tab", bytes(range(1, 65)), b"\nx")
-    buf = swar._pattern_set(patterns)
-    assert buf.shape == (swar.PATTERN_SET_BYTES,)
-    lens = buf[swar._SET_LEN : swar._SET_MAP].view(np.int32)
-    assert lens[: len(patterns)].tolist() == [3, 1, 3, 64, 2]
-    bits = np.unpackbits(buf[swar._SET_MAP : swar._SET_OFF], bitorder="little")
-    assert np.flatnonzero(bits).tolist() == sorted({p[0] for p in patterns})
-    off = buf[swar._SET_OFF : swar._SET_OFF + 257]
-    bucket = buf[swar._SET_BUCKET : swar._SET_BUCKET + len(patterns)]
-    for c in range(256):
-        got = bucket[off[c] : off[c + 1]].tolist()
-        assert got == [k for k, p in enumerate(patterns) if p[0] == c]
+    """The K-pattern kernel's tables: each member's words (word-major) and
+    length, the filter map bit of its prefix (lengths 3 and 4 in one map
+    word where the set has both), the buckets that list the members by
+    (prefix length, top 8 bits of key * the length's multiplier), in input
+    order within a bucket, the multipliers that keep distinct prefixes
+    apart, and the prefix lengths the set has."""
+    patterns = (b"the", b"a", b"tab", bytes(range(1, 65)), b"\nx", b"then", b"the")
+    buf = swar.multi_tables(patterns)
+    assert buf.shape == (swar.MULTI_TABLE_BYTES,)
+    lens = buf[swar._T_LEN : swar._T_LIST]
+    assert lens[: len(patterns)].tolist() == [3, 1, 3, 64, 2, 4, 3] and not lens[7:].any()
+    words = buf[swar._T_WORDS : swar._T_LEN].view("<u4").reshape(16, swar.MAX_PATTERNS)
+    rows = words.T.copy().view(np.uint8)  # word-major: word i of member k at [i][k]
     for k, p in enumerate(patterns):
-        row = buf[swar._SET_BYTES + 64 * k : swar._SET_BYTES + 64 * (k + 1)]
-        assert row[: len(p)].tobytes() == p and not row[len(p) :].any()
+        assert rows[k, : len(p)].tobytes() == p and not rows[k, len(p) :].any()
+    bits = np.unpackbits(buf[swar._T_MAP : swar._T_WORDS], bitorder="little")
+    assert swar.prefix_hash(b"the") == int.from_bytes(b"the", "little") * swar.HASH_MULT[2] % (1 << 32)
+    assert np.flatnonzero(bits).tolist() == sorted({swar.map_bit(p[:4]) for p in patterns})
+    h3, h4 = swar.prefix_hash(b"the"), swar.prefix_hash(b"then")  # "then" reads the word of "the"
+    assert swar.map_bit(b"then") == (h3 >> 22) * 32 + (h4 >> 17) % 32
+    assert swar.map_bit(b"then", joint=False) == h4 >> 17
+    mults = buf[swar._T_MULT : swar._T_MULT + 16].view("<u4").tolist()
+    off = buf[swar._T_OFF : swar._T_OFF + 4 * 256 + 1]
+    listed = buf[swar._T_LIST : swar._T_LIST + len(patterns)]
+    for n in range(1, 5):
+        for b in range(256):
+            i = 256 * (n - 1) + b
+            assert listed[off[i] : off[i + 1]].tolist() == [
+                k for k, p in enumerate(patterns) if min(len(p), 4) == n
+                and swar.prefix_hash(p[:n], mults[n - 1]) >> 24 == b
+            ]
+    assert off[-1] == len(patterns)
+    present = int(buf[swar._T_PRESENT : swar._T_PRESENT + 4].view("<u4")[0])
+    assert present == 0b1111
+    # bench.py's 64 variants: members of different 4-byte prefixes never share a bucket
+    mults = swar.multi_tables(variants(64))[swar._T_MULT : swar._T_MULT + 16].view("<u4")
+    prefixes = {p[:4] for p in variants(64) if len(p) >= 4}
+    assert len({swar.prefix_hash(q, int(mults[3])) >> 24 for q in prefixes}) == len(prefixes)
+    assert swar.bucket_mult([7, 7]) == swar.HASH_MULT[0]
+
+
+def test_device_tables_cached_per_folded_set():
+    """The kernel's device tables are built once per (folded set, case,
+    device): a second call returns the same tensor; -i and case-sensitive
+    calls never share one, even where folding leaves the set unchanged."""
+    pats = (b"The", b"fox")
+    cs = swar.device_multi_tables(pats, True, CPU)
+    assert swar.device_multi_tables(list(pats), True, "cpu") is cs
+    ci = swar.device_multi_tables(pats, False, CPU)
+    assert ci is not cs
+    assert np.array_equal(cs.numpy(), swar.multi_tables(pats))
+    assert np.array_equal(ci.numpy(), swar.multi_tables((b"the", b"fox")))
+    assert swar.device_multi_tables((b"THE", b"fox"), False, CPU) is ci  # the same folded set
+    lower = (b"the", b"fox")
+    a, b = swar.device_multi_tables(lower, True, CPU), swar.device_multi_tables(lower, False, CPU)
+    assert a is not b and torch.equal(a, b) and a is not ci
+
+
+def _fold_bits(s, state, hits, nl):
+    """csrc/scan_common.cuh fold_bits on int64 arrays (one entry per
+    thread): 32 positions of hit and newline bits into the summaries
+    s = [count, first, trail, lead, has_nl]."""
+    full = 0xFFFFFFFF
+    gen, prop = hits & ~nl & full, ~nl & full
+    total = gen + prop + state
+    open_ = (total ^ gen ^ prop) & full
+    s[1] += np.unpackbits((hits & ~open_ & full).astype("<u4").view(np.uint8)).reshape(
+        len(hits), 32).sum(1, dtype=np.int64)
+    upto = np.where(nl != 0, (nl ^ (nl - 1)) & full, full)
+    s[3] |= (s[4] == 0) & ((hits & upto) != 0)
+    s[4] |= nl != 0
+    return total >> 32
+
+
+def _combine(x, y):
+    return [x[0] + y[0], x[1] + y[1] - (x[2] & y[3]), y[2] if y[4] else x[2] | y[2],
+            x[3] if x[4] else x[3] | y[3], x[4] | y[4]]
+
+
+def multi_kernel_emulation(text: np.ndarray, true_len: int, n_blocks: int, tables: np.ndarray,
+                           cs: bool, ww: bool, prev_word: int = 0, start_limit=None):
+    """csrc/multi_scan.cu in numpy, driven only by its host-built tables: per
+    64 KiB block, every position's 4-byte window through the filter map at
+    each prefix length the set has, each candidate's bucket expanded into
+    (position, member) items, each item verified 4 bytes at a time against
+    the member's words (the last masked by its length) with the true_len
+    bound, the -w tests and the shard bound; then each thread's 8 words of
+    hit and newline bits folded as fold_bits does, and the 256 thread
+    summaries in order. Returns (stats, mask) as scan_blocks_multi does."""
+    b_ = literal.BLOCK_BYTES
+    t = text if cs else literal._fold(torch.from_numpy(text)).numpy()
+    isw = literal._is_word_char(torch.from_numpy(t)).numpy()
+    mapbits = np.unpackbits(tables[swar._T_MAP : swar._T_WORDS], bitorder="little").astype(bool)
+    words = tables[swar._T_WORDS : swar._T_LEN].view("<u4").reshape(16, 64).T.astype(np.int64)
+    lens = tables[swar._T_LEN : swar._T_LIST].astype(np.int64)
+    listed = tables[swar._T_LIST : swar._T_OFF].astype(np.int64)
+    off = tables[swar._T_OFF : swar._T_OFF + 4 * 256 + 1].astype(np.int64)
+    mults = tables[swar._T_MULT : swar._T_MULT + 16].view("<u4").astype(np.int64)
+    present = int(tables[swar._T_PRESENT : swar._T_PRESENT + 4].view("<u4")[0])
+    joint = present & 12 == 12
+    stats = np.zeros((n_blocks, literal.STAT_WORDS), np.int32)
+    mask = np.zeros(n_blocks * b_, np.uint8)
+    pos = np.arange(b_)
+    for blk in range(n_blocks):
+        base = blk * b_
+        seg = t[base : base + b_ + 64].astype(np.int64)
+        win = seg[:-3] | seg[1:-2] << 8 | seg[2:-1] << 16 | seg[3:] << 24
+        own = b_ if start_limit is None else min(max(start_limit - base, 0), b_)
+        ps, ks = [], []
+        for n in range(1, 5):
+            if not present >> (n - 1) & 1:
+                continue
+            key = win[:b_] & ((1 << 8 * n) - 1)
+            h = key * swar.HASH_MULT[n - 1] & 0xFFFFFFFF
+            w = (win[:b_] & 0xFFFFFF) * swar.HASH_MULT[2] & 0xFFFFFFFF if n == 4 and joint else h
+            cand = mapbits[(w >> 22) * 32 + (h >> 17) % 32] & (pos < own)
+            bucket = 256 * (n - 1) + ((key[cand] * mults[n - 1] & 0xFFFFFFFF) >> 24)
+            first, cnt = off[bucket], off[bucket + 1] - off[bucket]
+            ps.append(np.repeat(pos[cand], cnt))
+            item = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+            ks.append(listed[np.repeat(first, cnt) + item])
+        p, k = np.concatenate(ps), np.concatenate(ks)
+        m = lens[k]
+        ok = p + m <= true_len - base
+        for i in range(16):
+            rem = m - 4 * i
+            part = np.where(rem >= 4, 0xFFFFFFFF, (1 << 8 * np.clip(rem, 0, 3)) - 1)
+            ok &= (rem <= 0) | (((win[p + 4 * i] ^ words[k, i]) & part) == 0)
+        if ww:
+            prev0 = bool(isw[base - 1]) if blk else bool(prev_word)
+            before = np.where(p > 0, isw[base + np.maximum(p - 1, 0)], prev0)
+            ok &= ~before & ~isw[base + p + m]
+        hits = np.zeros(b_, bool)
+        hits[p[ok]] = True
+        mask[base : base + b_] = hits
+        nl = (seg[:b_] == literal.NEWLINE) & (pos < own)
+        hw = np.packbits(hits, bitorder="little").view("<u4").reshape(256, 8).astype(np.int64)
+        nw = np.packbits(nl, bitorder="little").view("<u4").reshape(256, 8).astype(np.int64)
+        s, state = np.zeros((5, 256), np.int64), np.zeros(256, np.int64)
+        for g in range(8):
+            state = _fold_bits(s, state, hw[:, g], nw[:, g])
+        s[2] = state
+        block = [int(x) for x in s[:, 0]]
+        for th in range(1, 256):
+            block = _combine(block, [int(x) for x in s[:, th]])
+        block[0] = int(ok.sum())
+        stats[blk, :5] = block
+    return torch.from_numpy(stats), torch.from_numpy(mask)
+
+
+def _collision_set() -> tuple[bytes, ...]:
+    """Members that collide in the kernel's filter map, over the alphabet
+    of the test texts: two 4-byte prefixes of one map bit, and a 3-byte
+    member whose map bit a 4-byte window also sets (lengths 3 and 4 share
+    map words)."""
+    import itertools
+
+    by_bit, pair = {}, None
+    for q in (bytes(x) for x in itertools.product(b"abcde_ ", repeat=4)):
+        bit = swar.map_bit(q)
+        if pair is None and bit in by_bit:
+            pair = (by_bit[bit], q)
+        by_bit.setdefault(bit, q)
+    cross = next(bytes(r) for r in itertools.product(b"abcde_ ", repeat=3)
+                 if swar.map_bit(bytes(r)) in by_bit)
+    return (pair[0], pair[1] + b"c", cross, b"ab")
+
+
+SETS_T = {
+    # prefixes shared at 1, 2, 3 and 4 bytes; members that are prefixes of others
+    "shared-prefixes": (b"a", b"ab", b"abc", b"abcd", b"abcde", b"abce", b"abd_", b"b", b"ba"),
+    "lengths-1-2-3-64-nl": (b"e", b"c ", b"the", b"\nab", b"\n", b"e a",
+                            (b"abcde_ " * 10)[:64]),
+    "common-prefix-64": tuple(
+        b"abcd" + bytes(x) for r in range(4) for x in __import__("itertools").product(
+            b"abcde_ ", repeat=r))[:64],
+    "collision": _collision_set(),
+}
+
+
+def set_text(patterns, seed: int, size: int) -> bytes:
+    """Text over the sets' alphabet with every member planted often,
+    ending in a member (matches at the last positions)."""
+    rng = np.random.default_rng(seed)
+    parts, n = [], 0
+    while n < size:
+        piece = naive.gen_corpus(int(rng.integers(1 << 30)), int(rng.integers(0, 9)),
+                                 b"abcde_ \n\nthe")
+        piece += patterns[int(rng.integers(len(patterns)))]
+        parts.append(piece)
+        n += len(piece)
+    return b"".join(parts)[: size - 64] + patterns[-1]
+
+
+def test_collision_set_collides():
+    """The collision set does what it is built for: two 4-byte prefixes in
+    one map bit, and a 3-byte member whose map bit a 4-byte window of the
+    alphabet also sets."""
+    import itertools
+
+    pats = SETS_T["collision"]
+    assert swar.map_bit(pats[0]) == swar.map_bit(pats[1][:4]) and pats[0] != pats[1][:4]
+    assert len(pats[2]) == 3 and any(
+        swar.map_bit(bytes(q)) == swar.map_bit(pats[2])
+        for q in itertools.product(b"abcde_ ", repeat=4))
+
+
+@pytest.mark.parametrize("name", list(SETS_T))
+def test_kernel_tables_reproduce_plain_and_pallas(name):
+    """The K-pattern kernel's filter, buckets and verify on its host-built
+    tables (multi_kernel_emulation) give literal.block_stats_multi's
+    summaries and mask exactly, with and without -i and -w, unbounded and
+    with a shard start_limit and prev_word; one unbounded and one shard case
+    per set (the unbounded one alone for the 64-member set, whose
+    interpret-mode kernel is the slowest to build) are also held to
+    interpret-mode pallas_swar.scan_multi / scan_shard_multi. Two blocks,
+    members planted at the block edge and at the text's end; the limit
+    lies inside a thread's span."""
+    patterns = SETS_T[name]
+    text = bytearray(set_text(patterns, 21, literal.BLOCK_BYTES + 6000))
+    longest = max(patterns, key=len)
+    text[literal.BLOCK_BYTES - 3 : literal.BLOCK_BYTES - 3 + len(longest)] = longest
+    text = bytes(text)
+    tst = dispatch.stage(text, CPU)
+    u8 = tst.u8.numpy()
+    m_max = max(map(len, patterns))
+    limit = literal.BLOCK_BYTES + 256 * 7 + 100  # inside thread 7's span of block 1
+    for cs, ww in [(True, False), (False, False), (True, True), (False, True)]:
+        tables = swar.device_multi_tables(patterns, cs, CPU).numpy()
+        for prev, sl in [(0, None), (1, limit)]:
+            tl = tst.true_len if sl is None else sl + m_max - 1
+            kw = dict(patterns=patterns, case_sensitive=cs, whole_word=ww, prev_word=prev,
+                      start_limit=sl, want_mask=True)
+            stats, mask = multi_kernel_emulation(u8, tl, tst.n_blocks, tables, cs, ww, prev, sl)
+            pstats, pmask = literal.block_stats_multi(tst.u8, tl, tst.n_blocks, **kw)
+            assert torch.equal(stats, pstats) and torch.equal(mask, pmask), (cs, ww, sl)
+            assert int(stats[:, 0].sum()) > 0
+    # the Pallas kernel on one unbounded and one shard case (text without "^")
+    cs, ww = name != "collision", name in ("lengths-1-2-3-64-nl", "collision")
+    jst = jdispatch.stage(text)
+    c, ln, mk = pallas_swar.scan_multi(
+        jst.u32, jst.true_len, patterns=patterns, case_sensitive=cs, whole_word=ww,
+        want_mask=True, want_lines=True, interpret=True,
+    )
+    tables = swar.device_multi_tables(patterns, cs, CPU).numpy()
+    stats, mask = multi_kernel_emulation(u8, tst.true_len, tst.n_blocks, tables, cs, ww)
+    assert lines.combine_block_stats(stats)[:2].tolist() == [int(c), int(ln)]
+    assert np.array_equal(mask.numpy(), np.asarray(mk).view(np.uint8)[: mask.shape[0]])
+    if len(patterns) == 64:
+        return
+    tl = limit + m_max - 1
+    c, f, trail, lead, has_nl, mk = pallas_swar.scan_shard_multi(
+        jst.u32, jnp.int32(tl), jnp.int32(1), jnp.int32(limit), patterns=patterns,
+        case_sensitive=cs, whole_word=ww, want_mask=True, interpret=True,
+    )
+    stats, mask = multi_kernel_emulation(u8, tl, tst.n_blocks, tables, cs, ww, 1, limit)
+    got = lines.combine_block_stats(stats)[:5].tolist()
+    assert got == [int(c), int(f), int(trail), int(lead), int(has_nl)]
+    assert np.array_equal(mask.numpy(), np.asarray(mk).view(np.uint8)[: mask.shape[0]])
 
 
 # ---------------------------------------------------------------- kernel C
