@@ -5,11 +5,15 @@
 
 Phases, each printing what it found:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — the CUDA kernels from krep_tpu_torch/csrc, timed;
+  2. build   — the CUDA kernels from krep_tpu_torch/csrc, timed, with the
+               ptxas registers, stack frame and spills of every instance
+               and the instance counts of the two word scans;
   3. kernels — each kernel against its plain PyTorch version on the card,
                exactly, at 64 MiB: count, matched lines, start mask and the
                slab (shard) stats with a start limit and prev_word, with and
-               without -i and -w, for pattern lengths 1, 3, 5, 17 and 64;
+               without -i and -w, for pattern lengths 1, 3, 5, 9, 17 and 64
+               (each length class of the word scan; its count and mask
+               instances);
   4. main path — the port's CLI on a 1 GiB config-1 corpus (bench.py's
                recipe, seed 12345): `-c the` (twice), `-c -i -w the` and
                `-m 5 -o the` (the slab route), and on its first 64 MiB
@@ -25,7 +29,11 @@ Phases, each printing what it found:
                prev_word, and the slab loop's 64 MiB (1,536 blocks) and
                1 GiB (24,576 blocks) slabs; then each kernel timed against
                its plain version at the 1 GiB `-c the` shape, with CUDA
-               events.
+               events; then the K=1 scan's count, -i -w count, start-mask
+               and shard instances for m = 1, 3, 5, 17 and 64 on the 1 GiB
+               corpus and on 1 GiB of a-z text, each exact against plain and
+               timed beside its bound and its plain time, and the shard
+               instance at the 1 GiB slab (24,576 blocks).
 The multi-pattern slice (-e/-f) adds, with bench.py's pattern sets rebuilt
 here (PATTERNS_16, config 3; its 64 eight-byte variants, config 3b; 64
 mixed 4-20 byte members, config 3c):
@@ -59,7 +67,7 @@ mixed 4-20 byte members, config 3c):
 The recursive slice (-r) adds:
   3r. kernels — the scan kernel's first_line mode and its fix-up kernel
                against their plain versions, exactly, at 64 MiB, with and
-               without -i and -w, for pattern lengths 1, 3, 17 and 64, on
+               without -i and -w, for pattern lengths 1, 3, 5, 17 and 64, on
                text whose lines cross the thread spans and block edges,
                span three blocks and more, and leave blocks without a
                newline;
@@ -114,7 +122,7 @@ The last three TPU kernels (the byte scan of KREP_TPU_BACKEND=pallas, its
 cost-attribution variants, the Hamming kernel's want_lines and strict) add:
   3v. kernels — the byte scan against its plain version, exactly, at 64 MiB
                of text with long lines: count, lines and mask, with and
-               without -i and -w, for pattern lengths 1, 3, 5, 17, 64, 65,
+               without -i and -w, for pattern lengths 1, 3, 5, 9, 17, 64, 65,
                1000 and 4096, the long ones planted across block edges,
                after "_^" and at the end; then the four variants;
   3h. kernels — the Hamming kernel's line mode (the 64 variants, the mixed
@@ -142,7 +150,8 @@ cost-attribution variants, the Hamming kernel's want_lines and strict) add:
                variants and both Hamming modes exact against plain, then
                timed beside their bounds, the chained pair (mask instance +
                lines_blocks), the count instance, torch.sum and
-               torch._int_mm.
+               torch._int_mm; the byte scan's count and mask also for
+               m = 65, 1000 and 4096 (patterns cut from the corpus).
 It then prints one JSON line of kernels and, last, the result line. It
 exits non-zero, with no result line, when any phase fails; when no card is
 available or the package is missing (a copy of the script run outside the
@@ -399,18 +408,25 @@ def ptxas_lines(log: str) -> list[str]:
     """One line per compiled kernel instance of an `nvcc -Xptxas -v` log:
     its mangled name cut to the kernel and template arguments (the Hamming
     kernel's as KS1, two windows, mode, G in shared memory; the K-pattern
-    scan's as -i fold, -w, mask, shard), its registers, stack frame and
-    spills."""
+    scan's as -i fold, -w, mask, shard; the word scans' as pattern-length
+    class, -w, mask kind and, for the byte scan, lines), its registers,
+    stack frame and spills."""
     import re
 
     out, name, frame = [], None, ""
+    lens, masks = ("m<=4", "m<=8", "m>8"), ("none", "starts", "first_line")
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
             h = re.search(r"hamming_scan_kernelILi(\d)ELb(\d)ELi(\d)ELb(\d)", name)
             k = re.search(r"scan_blocks_multi_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
-            if h:
+            w = re.search(r"(scan_blocks|byte_scan)_kernelILi(\d)ELb(\d)ELi(\d)E(?:Lb(\d)E)?", name)
+            if w:
+                kern, cls, word, mask, lin = w.groups()
+                name = (f"{kern}_kernel<{lens[int(cls)]}, word={word}, mask={masks[int(mask)]}"
+                        + (f", lines={lin}>" if lin is not None else ">"))
+            elif h:
                 ks, two, mode, gs = h.groups()
                 name = (f"hamming_scan_kernel<KS1={ks}, two={two}, "
                         f"{('count', 'lines', 'strict')[int(mode)]}, G in smem={gs}>")
@@ -465,6 +481,7 @@ def reset_launches() -> None:
 
     swar.LAUNCHES = swar.COMBINE_LAUNCHES = swar.MULTI_LAUNCHES = swar.LINES_LAUNCHES = 0
     swar.FIRST_LINE_LAUNCHES = swar.FIXUP_LAUNCHES = swar.MULTI_SHARD_LAUNCHES = 0
+    swar.MASK_LAUNCHES = swar.SHARD_LAUNCHES = 0
     mxu.LAUNCHES = mxu.SHARD_LAUNCHES = mxu.LINES_LAUNCHES = mxu.STRICT_LAUNCHES = 0
     bytescan.LAUNCHES = bytescan.MASK_LAUNCHES = 0
     bytescan.VARIANT_LAUNCHES.update(dict.fromkeys(bytescan.VARIANTS, 0))
@@ -475,6 +492,7 @@ def read_launches(*names: str) -> dict:
     from krep_tpu_torch.ops import bytescan, mxu, swar
 
     counts = {"scan_blocks": swar.LAUNCHES, "combine_blocks": swar.COMBINE_LAUNCHES,
+              "scan_blocks mask": swar.MASK_LAUNCHES, "scan_blocks shard": swar.SHARD_LAUNCHES,
               "scan_blocks first_line": swar.FIRST_LINE_LAUNCHES,
               "first_line_fixup": swar.FIXUP_LAUNCHES,
               "scan_blocks_multi": swar.MULTI_LAUNCHES, "lines_blocks": swar.LINES_LAUNCHES,
@@ -673,8 +691,15 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     say(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib, ROOT)}")
-    for line in ptxas_lines(lib.with_suffix(".log").read_text()):
+    ptx = ptxas_lines(lib.with_suffix(".log").read_text())
+    for line in ptx:
         say(f"  ptxas: {line}")
+    for kern in ("scan_blocks_kernel", "byte_scan_kernel"):
+        mine = [line for line in ptx if line.startswith(kern + "<")]
+        regs = [int(line.split("Used ")[1].split()[0]) for line in mine if "Used " in line]
+        spills = [line for line in mine if "spill" in line and " 0 bytes spill stores" not in line]
+        say(f"  ptxas: {kern}: {len(mine)} instances, {min(regs, default=0)}-{max(regs, default=0)} "
+            f"registers, {len(spills)} with spills")
 
     workdir = tempfile.mkdtemp(prefix="krep_chip_smoke_")
     try:
@@ -691,11 +716,13 @@ def main() -> int:
             f.write(head[:MIB16])
         say(f"corpus: 1 GiB + 64 MiB + 16 MiB written in {time.perf_counter() - t0:.1f} s")
 
-        max_err = {"scan_blocks": 0, "combine_blocks": 0}
+        max_err = {"scan_blocks": 0, "combine_blocks": 0, "scan_blocks mask": 0,
+                   "scan_blocks shard": 0}
 
         def kernels_vs_plain(st, **kw):
             """Both kernels against their plain versions on one staged text;
-            folds the differences into max_err and returns the kernels'
+            folds the differences into max_err (the start-mask and shard
+            instances also under their own names) and returns the kernels'
             (totals, mask)."""
             stats, mask = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
             tot = swar.combine_blocks(stats)
@@ -703,7 +730,10 @@ def main() -> int:
             errs = [int((stats - pstats).abs().max())]
             if kw.get("want_mask"):
                 errs.append(int((mask != pmask).any()))  # 0/1 bytes
-            max_err["scan_blocks"] = max(max_err["scan_blocks"], *errs)
+            names = ["scan_blocks"] + (["scan_blocks mask"] if kw.get("want_mask") else []) + (
+                ["scan_blocks shard"] if kw.get("start_limit") is not None else [])
+            for name in names:
+                max_err[name] = max(max_err[name], *errs)
             max_err["combine_blocks"] = max(
                 max_err["combine_blocks"],
                 int((tot - lines.combine_block_stats(stats)).abs().max()),
@@ -716,12 +746,16 @@ def main() -> int:
         n_checks = 0
         limit = MIB64 - 12_345
         line_start = int(np.flatnonzero(text[1000:] == 10)[7]) + 1001
-        for m in (1, 3, 5, 17, 64):
+        for m in (1, 3, 5, 9, 17, 64):  # each pattern-length class of the word scan
             pat = {1: b"e", 3: b"the", 5: b"quick"}.get(m) or bytes(text[line_start : line_start + m])
             counts = []
             for cs in (True, False):
                 for ww in (False, True):
                     for prev, sl in ((0, None), (1, limit)):
+                        kernels_vs_plain(  # the count instance
+                            st, pattern=pat, case_sensitive=cs, whole_word=ww,
+                            prev_word=prev, start_limit=sl,
+                        )
                         tot, mask = kernels_vs_plain(
                             st, pattern=pat, case_sensitive=cs, whole_word=ww,
                             prev_word=prev, start_limit=sl, want_mask=True,
@@ -751,7 +785,7 @@ def main() -> int:
                 f"for (cs, -w, -i, -i -w): {counts}")
         torch.cuda.synchronize()
         check(max(max_err.values()) == 0, f"kernel != plain: {max_err}")
-        say(f"kernels vs plain at 64 MiB: {n_checks} cases, all exact")
+        say(f"kernels vs plain at 64 MiB: {n_checks} cases (count and mask instances), all exact")
         del tot, mask
 
         # 3+. the multi-pattern kernels against their plain versions at 64 MiB
@@ -812,7 +846,7 @@ def main() -> int:
 
         nl_free = None
         line_start = int(np.flatnonzero(ltext[5000:] == 10)[3]) + 5001
-        for m in (1, 3, 17, 64):
+        for m in (1, 3, 5, 17, 64):
             pat = {1: b"e", 3: b"the"}.get(m) or bytes(ltext[line_start : line_start + m])
             got = []
             for cs in (True, False):
@@ -831,7 +865,7 @@ def main() -> int:
         torch.cuda.synchronize()
         check(max_err["scan_blocks first_line"] == 0 and max_err["first_line_fixup"] == 0,
               f"first_line kernel != plain: {max_err}")
-        say(f"first_line kernels vs plain at 64 MiB: 16 cases, all exact; {nl_free} of "
+        say(f"first_line kernels vs plain at 64 MiB: 20 cases, all exact; {nl_free} of "
             f"{st.n_blocks} blocks hold no newline, longest line {int(gaps.max())} bytes")
         del st, stats, mask, tot, ltext
 
@@ -883,7 +917,7 @@ def main() -> int:
         line_start = int(np.flatnonzero(vtext[3000:] == 10)[5]) + 3001
         max_err.update({"scan_bytes": 0, "scan_bytes mask": 0})
         vpats = {}
-        for i, m in enumerate((1, 3, 5, 17, 64, 65, 1000, 4096)):
+        for i, m in enumerate((1, 3, 5, 9, 17, 64, 65, 1000, 4096)):
             pat = {1: b"e", 3: b"the", 5: b"quick"}.get(m) or bytes(vtext[line_start : line_start + m])
             vpats[m] = pat
             if m > 5:  # each length at its own blocks; the longest last at the end
@@ -1028,7 +1062,8 @@ def main() -> int:
 
         reset_launches()
         outs = [port_cli(args) for args, _ in runs]
-        launches = read_launches("scan_blocks", "combine_blocks")
+        launches = read_launches("scan_blocks", "combine_blocks", "scan_blocks mask",
+                                 "scan_blocks shard")
         for (args, nbytes), got, ref in zip(runs, outs, refs):
             check_identical(args, nbytes, got, ref)
         say(f"launches during the main path: {launches}")
@@ -1459,6 +1494,57 @@ def main() -> int:
             f"kernels {sum(t[0] for t in timing.values()):.4f} ms "
             f"({GIB / (timing['scan_blocks'][0] + timing['combine_blocks'][0]) / 1e6:.1f} GB/s) [{card}]")
 
+        # the word scan's K=1 instances at 1 GiB, on the corpus and on a-z
+        # text (bench_scan's cases): count, -i -w count, start mask and
+        # shard stats (a start limit 12,345 bytes before the end, prev_word
+        # 1) for m = 1, 3, 5, 17 and 64, each exact against plain, then
+        # timed beside its bound and its plain time (first_line is timed at
+        # the batch shapes, 5r); then the shard instance at the 1 GiB slab
+        # of the slab loop (24,576 blocks, a third of them past start_limit)
+        from krep_tpu_torch.tools import bench_scan
+
+        word_ms = {}
+        for tname, src in (("corpus", corpus), ("a-z", bench_scan.a_to_z(GIB))):
+            wst = st if tname == "corpus" else dispatch.stage(src, dev)
+            for name, pat, kw, tl, nbytes in bench_scan.k1_cases(src, wst.n_blocks * 65536):
+                if name.endswith("first_line"):
+                    continue
+                tl = wst.true_len if tl is None else tl
+                kw = dict(kw, pattern=pat)
+                stats, mask = swar.scan_blocks(wst.u8, tl, wst.n_blocks, **kw)
+                pstats, pmask = literal.block_stats(wst.u8, tl, wst.n_blocks, **kw)
+                err = int((stats - pstats).abs().max())
+                if mask is not None:
+                    err = max(err, int((mask != pmask).any()))
+                key = ("scan_blocks mask" if name.endswith(" mask") else
+                       "scan_blocks shard" if name.endswith(" shard") else "scan_blocks")
+                max_err[key] = max(max_err[key], err)
+                k_ms = cuda_ms(lambda: swar.scan_blocks(wst.u8, tl, wst.n_blocks, **kw), 20)
+                p_ms = cuda_ms(lambda: literal.block_stats(wst.u8, tl, wst.n_blocks, **kw), 2)
+                b_ms, b_by = bound(nbytes + 64 + 32 * wst.n_blocks)
+                word_ms[(tname, name)] = (k_ms, p_ms, (b_ms, b_by))
+                say(f"timing 1 GiB {tname}: scan_blocks {name} {k_ms:.4f} ms, plain {p_ms:.4f} "
+                    f"ms, bound {b_ms:.4f} ms ({b_by}), {int(stats[:, 0].sum())} matches, error "
+                    f"{err} [{card}]")
+                del stats, mask, pstats, pmask
+            del wst, src
+        check(max(max_err.values()) == 0, f"word scan != plain at 1 GiB: {max_err}")
+        slab = dispatch.stage(np.concatenate([corpus[:GIB], corpus[:3]]), dev, true_len=GIB + 2)
+        check(slab.n_blocks == 24_576, f"1 GiB slab bucket of {slab.n_blocks} blocks")
+        skw = dict(pattern=b"the", prev_word=0, start_limit=GIB)
+        shard_slab = (
+            cuda_ms(lambda: swar.scan_blocks(slab.u8, slab.true_len, slab.n_blocks, **skw), 20),
+            cuda_ms(lambda: literal.block_stats(slab.u8, slab.true_len, slab.n_blocks, **skw), 2),
+        )
+        slab_bound = bound(GIB + 64 + 32 * slab.n_blocks)
+        say(f"timing the 1 GiB slab (24,576 blocks, start_limit 1 GiB): scan_blocks shard "
+            f"{shard_slab[0]:.4f} ms, plain {shard_slab[1]:.4f} ms, bound {slab_bound[0]:.4f} ms "
+            f"({slab_bound[1]}); the count instance on the 1 GiB staging "
+            f"{word_ms[('corpus', 'm=3 count')][0]:.4f} ms [{card}]")
+        del slab
+        timing["scan_blocks mask"] = word_ms[("corpus", "m=3 mask")][:2]
+        timing["scan_blocks shard"] = shard_slab
+
         # 4+, continued: each 1 GiB multi-pattern CLI count against the
         # single-pattern kernel path on the same staged corpus
         for (args, (kind, pats, ww)), (out, rc, dt) in zip(big_runs, big_outs):
@@ -1542,6 +1628,8 @@ def main() -> int:
         hamming_ops = 2 * g1.shape[0] * g1.shape[1] * (body // 4)
         bounds = {
             "scan_blocks": bound(body + 64 + 32 * st.n_blocks),
+            "scan_blocks mask": word_ms[("corpus", "m=3 mask")][2],
+            "scan_blocks shard": slab_bound,
             "combine_blocks": bound(32 * st.n_blocks + 32),
             "scan_blocks_multi": bound(body + 64 + swar.MULTI_TABLE_BYTES + 32 * n_blk),
             "lines_blocks": bound(2 * body + 32 * n_blk),
@@ -1645,6 +1733,31 @@ def main() -> int:
                 f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
         say(f"timing 1 GiB -c the: the SWAR scan with a mask {swar_mask_ms:.4f} ms; "
             f"torch.sum(text, dtype=torch.int32) {library['bench_kernel passthrough']:.4f} ms [{card}]")
+        # long patterns, cut from the corpus at a line start (each occurs at
+        # least once): count and mask, exact against plain, then timed
+        nl0 = int(np.flatnonzero(corpus[7000:6_000_000] == 10)[1]) + 7001
+        for m in (65, 1000, 4096):
+            lpat = bytes(corpus[nl0 : nl0 + m])
+            for want_mask in (False, True):
+                kw = dict(pattern=lpat, want_mask=want_mask)
+                stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, n_blk, **kw)
+                pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len, n_blk, **kw)
+                err = int((stats - pstats).abs().max())
+                if want_mask:
+                    err = max(err, int((mask != pmask).any()))
+                name = "scan_bytes mask" if want_mask else "scan_bytes"
+                max_err[name] = max(max_err[name], err)
+                k_ms = cuda_ms(lambda: bytescan.scan_blocks_bytes(st.u8, st.true_len, n_blk, **kw),
+                               10)
+                p_ms = cuda_ms(lambda: bytescan.block_stats_bytes(st.u8, st.true_len, n_blk, **kw),
+                               1)
+                b_ms, b_by = bounds[name]
+                say(f"timing 1 GiB corpus: byte scan m={m} {'mask' if want_mask else 'count'} "
+                    f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                    f"{int(stats[:, 0].sum())} matches, error {err} [{card}]")
+                del stats, mask, pstats, pmask
+        check(max_err["scan_bytes"] == 0 and max_err["scan_bytes mask"] == 0,
+              f"byte scan != plain at 1 GiB for long patterns: {max_err}")
         timing.update(vtiming)
 
         # 5h. the Hamming kernel's line and strict modes at 1 GiB: exact
@@ -1829,6 +1942,8 @@ def main() -> int:
     csrc = "krep_tpu_torch/csrc/"
     sources = {  # kernel: (source, the Pallas kernel it replaces)
         "scan_blocks": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
+        "scan_blocks mask": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
+        "scan_blocks shard": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
         "combine_blocks": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
         "scan_blocks first_line": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
         "first_line_fixup": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),

@@ -5,56 +5,72 @@
 // at :961): the all-starts match of one 1-64 byte pattern with the -i fold
 // and the -w word boundaries, the match count, the matched-line count
 // (the -c dedup: a line counts once, at its first match), the 0/1 start
-// mask, and the shard statistics of `scan_shard` (first-in-line count,
-// trail, lead, has_nl) bounded by `start_limit` and `prev_word`.
+// mask or the first-in-line mask, and the shard statistics of `scan_shard`
+// (first-in-line count, trail, lead, has_nl) bounded by `start_limit` and
+// `prev_word`.
 //
-// What bounds it on the card: bytes moved. One pass reads the staged text
-// (n bytes) and, with a mask, writes n mask bytes; everything else is a few
-// integers per 64 KiB. The design keeps that to one read of the text:
-//   * one CUDA block per 64 KiB of staged text copies its bytes (plus a
-//     64-byte tail for matches that cross into the next block or the zero
-//     halo) into shared memory with coalesced 16-byte loads, folding -i
-//     there once;
-//   * each of the 256 threads then walks 256 contiguous bytes of that
-//     copy. Rows are padded to 260 bytes so the 32 threads of a warp read
-//     32 different banks;
-//   * the pattern travels by value in the kernel's argument struct, so
-//     concurrent launches with different patterns never share state.
+// What bounds it on the card: the bytes (one pass reads the staged text, n
+// bytes, and with a mask writes n mask bytes: 0.32 / 0.64 ms per GiB at
+// 3.35 TB/s) and, nearly as much, the instructions per byte. Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W (python -m krep_tpu_torch.tools.bench_scan):
+// the count takes 0.49 ms per GiB where the read alone takes 0.35, each
+// masked word compare per position about 0.14 ms more (m up to 8: 0.63 ms),
+// -i -w 0.82 ms, the start mask 0.75 ms. The first design walked each
+// thread's 256 shared-memory bytes one at a time, entered a compare loop
+// with an early exit at every byte equal to the pattern's first (on English
+// text some lane of every warp is in that loop at nearly every step),
+// tested -w, the mask and the limit per byte at run time and wrote the mask
+// 4 bytes at a time with the lanes of a warp 256 bytes apart: 3.3 ms per
+// GiB, 6.7 with the mask. This design is the
+// word scan of scan_common.cuh (word_scan_block), as the TPU kernel compares
+// whole words (`_phase_words`, pallas_swar.py:116):
+//   * each warp walks its 8 KiB in strides of 512 bytes, lane l holding
+//     bytes 16l..16l+15 in registers, loaded straight from global memory
+//     two strides ahead (coalesced, no shared-memory copy, no barrier); the
+//     next lane's first words and the previous lane's last byte come by
+//     shuffle;
+//   * every start position is a funnel-shifted window compared under a
+//     byte mask: one compare up to 4 pattern bytes, two up to 8; a longer
+//     pattern takes those 8 bytes as a branch-free filter, and the warp
+//     verifies its candidates 32 at a time from a queue (verify_long), so
+//     dense candidates do not serialise it (a 12-byte filter, one compare
+//     more per position, cost more than the verify it saves on English);
+//   * -w is a bit word: the word flags of the lane's bytes (made one stride
+//     ahead), shifted by 1 and by m, tested directly on bytes (not the TPU
+//     kernel's SWAR borrow, which drops matches after "_^");
+//   * lines: a lane's newlines are a bit word too; two ballots per stride
+//     give each lane the state entering it, and the carry of one add (as
+//     fold_bits) gives its first-in-line flags; count is a popc;
+//   * the mask: each lane stores its 16 flags as 16 0/1 bytes, one uint4,
+//     so a warp stores 512 contiguous bytes;
+//   * the pattern-length class, -w and the mask kind (none, starts,
+//     first_line) are template arguments: 18 instances, picked by
+//     krep_scan_blocks, whose hot loop tests none of them. -i folds each
+//     loaded word (a block-uniform test); the limits are one warp-uniform
+//     test per stride, and only the stride that holds the last start or
+//     start_limit masks its hit and newline words. A block wholly past
+//     start_limit writes zeros and stops.
 //
 // The TPU kernel carries the open-line flag, the -w previous-byte flag and
-// the shard stats from one grid step to the next in scratch memory. CUDA
-// blocks run in no order, so nothing is carried: the -w flag is a direct
-// read of the previous byte, and each block (and each thread inside it)
-// emits a summary that a second, one-block kernel folds in text order with
-// the algebra of LineCountCombiner.push (krep_tpu/parallel/mesh.py:135-143).
-// The folded summary is the matched-line count and, unchanged, the shard
-// stats of the slab loop, so -c, plain scans and slabs share one path.
+// the shard stats across its sequential grid in scratch memory. CUDA
+// blocks run in no order, so each block emits a summary that
+// combine_blocks_kernel folds in text order with the algebra of
+// LineCountCombiner.push (krep_tpu/parallel/mesh.py:135-143); the -w flag
+// is a direct read of the previous byte. The folded summary is the
+// matched-line count and, unchanged, the shard stats of the slab loop.
 //
-// The -c dedup mask (mask_kind "first_line", the batched `-r -c` path of
-// krep_tpu/io/batch.py): a byte is flagged where a match starts and no
-// earlier match starts in its line. The TPU kernel carries "the open line
-// already has a match" across its sequential grid (pallas_swar.py:431-438);
-// here the state entering a thread's span depends on every earlier thread
-// and block, so the flags are made exact in three steps, none relying on
-// the order blocks run in:
-//   * each thread writes its flags as if its span began on a closed line
-//     and notes its lead flag: its first flag at or before its first
-//     newline, the only flag the entering state can change;
-//   * inside the block, a thread clears its lead flag when the span
-//     entering it has an open matched line: the nearest earlier thread with
-//     a match after its last newline (trail) or a newline decides, read
-//     from the thread summaries in shared memory. The block stores the
-//     offset of its own lead flag in stats word 5 (-1 if none);
-//   * first_line_fixup_kernel, one thread per block, does the same across
-//     blocks from the block summaries and clears at most one flag a block.
-// Each backward walk stops at the previous span that holds a match, so the
-// walks of a block's threads (or of the grid's blocks) cover each span at
-// most once.
-//
-// Simple first: no cp.async or TMA, and the SWAR word tricks of the TPU
-// kernel are not used.
+// The -c dedup mask (mask kind first_line, the batched `-r -c` path of
+// krep_tpu/io/batch.py) is made exact in three steps, none relying on the
+// order blocks run in: inside a warp the state entering each lane comes
+// from the ballots, so its flags are exact as if the warp's span began on
+// a closed line; a warp clears its lead flag (its first match, when at or
+// before its first newline: the only flag the entering state can change)
+// when an earlier warp of the block leaves a matched line open, read from
+// the warps' summaries in shared memory, and the block stores the offset of
+// its own lead flag in stats word 5 (-1 if none); first_line_fixup_kernel,
+// one thread per block, does the same across blocks from the block
+// summaries and clears at most one flag a block.
 
-#include <limits.h>
 #include <string.h>
 
 #include "scan_common.cuh"
@@ -63,142 +79,25 @@ namespace {
 
 constexpr int kCombineThreads = 1024;
 constexpr int kFixupThreads = 256;
+constexpr int kPatWords = kMaxPattern / 4 + 2;  // zero words past the longest pattern
 
 struct Pattern {
-  unsigned char b[kMaxPattern];
+  uint32_t w[kMaxPattern / 4];  // little-endian words, zero past m
 };
 
-// kFirstLine is a template argument so the count, line and start-mask
-// scans compile without the first-line bookkeeping.
-template <bool kFirstLine>
+template <int kLen, bool kWord, int kMask>
 __global__ void __launch_bounds__(kThreads)
-scan_blocks_kernel(const uint8_t* __restrict__ text, Pattern pat, int m, int icase,
-                   int wword, int true_len, int prev_word, int start_limit,
-                   uint8_t* __restrict__ mask, int* __restrict__ stats) {
-  extern __shared__ uint32_t smem_words[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_words);
-  __shared__ Summary warp_sums[kThreads / 32];
-  __shared__ uint8_t span_trail[kThreads], span_nl[kThreads];
-  __shared__ int block_lead;
-
-  const int t = threadIdx.x;
-  const int base = blockIdx.x * kBlockBytes;  // staged arrays stay below 2 GiB
-  const uint8_t* block = text + size_t(base);
-
-  // 1. The block's 64 KiB and the 64-byte tail into shared memory.
-  const uint4* src = reinterpret_cast<const uint4*>(block);
-#pragma unroll 4
-  for (int k = 0; k < kBlockBytes / 16 / kThreads; ++k) {
-    const int chunk = k * kThreads + t;
-    uint4 v = src[chunk];
-    if (icase) {
-      v.x = fold4(v.x);
-      v.y = fold4(v.y);
-      v.z = fold4(v.z);
-      v.w = fold4(v.w);
-    }
-    uint32_t* dst = reinterpret_cast<uint32_t*>(smem + sidx(chunk * 16));
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  }
-  if (t < kTail / 4) {
-    uint32_t v = reinterpret_cast<const uint32_t*>(block + kBlockBytes)[t];
-    if (icase) v = fold4(v);
-    reinterpret_cast<uint32_t*>(smem + kThreads * kRow)[t] = v;
+scan_blocks_kernel(const uint8_t* __restrict__ text, Pattern pat, int m, int icase, int true_len,
+                   int prev_word, int start_limit, uint8_t* __restrict__ mask,
+                   int* __restrict__ stats) {
+  __shared__ WordScanShared<kPatWords> sh;
+  if (threadIdx.x == 0) {  // constant indices: the argument stays in the constant bank
+#pragma unroll
+    for (int i = 0; i < kPatWords; ++i) sh.pat[i] = i < kMaxPattern / 4 ? pat.w[i] : 0u;
   }
   __syncthreads();
-
-  // 2. Each thread walks its 256 bytes in order.
-  const int off0 = t * kSpan;
-  int prev_w = 0;
-  if (wword) {
-    if (t > 0)
-      prev_w = is_word(smem[sidx(off0 - 1)]);
-    else if (blockIdx.x > 0)
-      prev_w = is_word(block[-1]);  // folding keeps word-ness
-    else
-      prev_w = prev_word;
-  }
-  const int last_start = min(true_len - m, start_limit - 1);  // inclusive bound on starts
-  const unsigned char p0 = pat.b[0];
-  Summary s = {0, 0, 0, 0, 0};
-  int state = 0;      // the open line already has a match
-  int lead_off = -1;  // block-local offset of the first match before (or on) the first newline
-  uint32_t mword = 0;
-  for (int j = 0; j < kSpan; ++j) {
-    const int o = off0 + j;
-    const int g = base + o;
-    const unsigned c = smem[sidx(o)];
-    int hit = 0;
-    if (c == p0 && g <= last_start) {
-      hit = 1;
-      for (int k = 1; k < m; ++k) {
-        if (smem[sidx(o + k)] != pat.b[k]) {
-          hit = 0;
-          break;
-        }
-      }
-      if (hit && wword) hit = !prev_w && !is_word(smem[sidx(o + m)]);
-    }
-    if (wword) prev_w = is_word(c);
-    const int nl = (c == '\n') & (g < start_limit);
-    const int flag = kFirstLine ? (hit & !state) : hit;
-    if (hit) {
-      ++s.count;
-      s.first += !state;
-      if (kFirstLine && !s.has_nl && lead_off < 0) lead_off = o;
-      s.lead |= !s.has_nl;
-    }
-    state = nl ? 0 : (state | hit);
-    s.has_nl |= nl;
-    if (mask) {
-      mword |= uint32_t(flag) << (8 * (j & 3));
-      if ((j & 3) == 3) {
-        *reinterpret_cast<uint32_t*>(mask + g - 3) = mword;
-        mword = 0;
-      }
-    }
-  }
-  s.trail = state;
-
-  // 3. first_line: clear the lead flag of a span entered with a matched
-  // open line, and find the block's lead flag (the block's first match,
-  // when the block's lead says it lies at or before the first newline).
-  if (kFirstLine) {
-    span_trail[t] = s.trail;
-    span_nl[t] = s.has_nl;
-    if (t == 0) block_lead = INT_MAX;
-    __syncthreads();
-    if (lead_off >= 0) {
-      atomicMin(&block_lead, lead_off);
-      for (int u = t - 1; u >= 0; --u) {
-        if (span_trail[u]) {
-          mask[base + lead_off] = 0;
-          break;
-        }
-        if (span_nl[u]) break;
-      }
-    }
-  }
-
-  // 4. Fold the 256 thread summaries in order.
-  s = warp_fold(s);
-  if ((t & 31) == 0) warp_sums[t >> 5] = s;
-  __syncthreads();
-  if (t == 0) {
-    Summary b = warp_sums[0];
-    for (int w = 1; w < kThreads / 32; ++w) b = combine(b, warp_sums[w]);
-    int* out = stats + blockIdx.x * kStatWords;
-    out[0] = b.count;
-    out[1] = b.first;
-    out[2] = b.trail;
-    out[3] = b.lead;
-    out[4] = b.has_nl;
-    out[5] = kFirstLine ? (b.lead ? base + block_lead : -1) : 0;
-    out[6] = out[7] = 0;
-  }
+  word_scan_block<kLen, kWord, kMask, true>(
+      WordScanArgs{text, m, icase, true_len, prev_word, start_limit, mask, stats}, sh);
 }
 
 // One thread per block: clears the block's lead flag (stats word 5) when
@@ -249,17 +148,31 @@ combine_blocks_kernel(const int* __restrict__ stats, int nblocks, int* __restric
   }
 }
 
+
+using ScanKernel = void (*)(const uint8_t*, Pattern, int, int, int, int, int, uint8_t*, int*);
+
+#define KREP_SCAN(L, W)                                                             \
+  scan_blocks_kernel<L, W, kNoMask>, scan_blocks_kernel<L, W, kStartMask>,          \
+      scan_blocks_kernel<L, W, kFirstLineMask>
+// (length class, -w, mask kind) -> instance: (3 * (2 * class + word) + kind)
+const ScanKernel kScanInstances[18] = {
+    KREP_SCAN(kLen4, false),  KREP_SCAN(kLen4, true),    KREP_SCAN(kLen8, false),
+    KREP_SCAN(kLen8, true),   KREP_SCAN(kLenLong, false), KREP_SCAN(kLenLong, true),
+};
+#undef KREP_SCAN
+
 }  // namespace
 
 // Per-block summaries of nblocks * 64 KiB of staged text. `text` must hold
 // nblocks * 65536 + 64 readable bytes (the staged 4 KiB zero halo covers the
 // tail) and be 16-byte aligned; `pattern` holds m bytes, already folded for
-// -i; `mask` (nullable) receives one 0/1 byte per text byte, every match
-// start, or with `first_line` the first-in-line flags of each block as if
-// it began on a closed line (krep_first_line_fixup finishes them); `stats`
-// receives 8 int32 per block: count, first, trail, lead, has_nl, then with
-// `first_line` the text offset of the block's lead flag (-1 if none), else
-// 0, then 0, 0. Returns the launch's cudaGetLastError().
+// -i; `mask` (nullable, 16-byte aligned) receives one 0/1 byte per text
+// byte, every match start, or with `first_line` the first-in-line flags of
+// each block as if it began on a closed line (krep_first_line_fixup
+// finishes them); `stats` receives 8 int32 per block: count, first, trail,
+// lead, has_nl, then with `first_line` the text offset of the block's lead
+// flag (-1 if none), else 0, then 0, 0. Returns the launch's
+// cudaGetLastError().
 extern "C" int krep_scan_blocks(const void* text, int nblocks, const unsigned char* pattern,
                                 int m, int icase, int wword, int true_len, int prev_word,
                                 int start_limit, int first_line, void* mask, void* stats,
@@ -267,14 +180,12 @@ extern "C" int krep_scan_blocks(const void* text, int nblocks, const unsigned ch
   if (m < 1 || m > kMaxPattern || nblocks < 1) return int(cudaErrorInvalidValue);
   if (first_line && !mask) return int(cudaErrorInvalidValue);
   Pattern p;
-  memset(p.b, 0, sizeof(p.b));
-  memcpy(p.b, pattern, m);
-  auto kernel = first_line ? scan_blocks_kernel<true> : scan_blocks_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return int(err);
-  kernel<<<nblocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(text), p, m, icase, wword, true_len, prev_word, start_limit,
+  memset(p.w, 0, sizeof(p.w));
+  memcpy(p.w, pattern, m);  // little-endian host and device
+  const int kind = first_line ? kFirstLineMask : mask ? kStartMask : kNoMask;
+  const ScanKernel kernel = kScanInstances[3 * (2 * len_class(m) + (wword ? 1 : 0)) + kind];
+  kernel<<<nblocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(text), p, m, icase, true_len, prev_word, start_limit,
       static_cast<uint8_t*>(mask), static_cast<int*>(stats));
   return int(cudaGetLastError());
 }

@@ -26,7 +26,8 @@ On a CUDA tensor each wrapper launches its kernel or raises. On a CPU
 tensor it runs the kernel's plain PyTorch version (literal.block_stats,
 lines.first_line_fixup, literal.block_stats_multi,
 literal.lines_block_stats, lines.combine_block_stats). `LAUNCHES`
-(`FIRST_LINE_LAUNCHES` of them with mask_kind="first_line"),
+(`MASK_LAUNCHES` of them with a start mask, `FIRST_LINE_LAUNCHES` with
+mask_kind="first_line", `SHARD_LAUNCHES` with a start_limit),
 `FIXUP_LAUNCHES`, `MULTI_LAUNCHES` (`MULTI_SHARD_LAUNCHES` of them in the
 shard mode), `LINES_LAUNCHES` and `COMBINE_LAUNCHES` count kernel launches,
 so a run can show that it went through the kernels.
@@ -49,7 +50,9 @@ TAIL_BYTES = 64         # bytes the kernel reads past the body: m - 1 plus the -
 NO_LIMIT = 0x7FFFFFF0   # start_limit sentinel: no owned-region restriction
 
 LAUNCHES = 0
+MASK_LAUNCHES = 0
 FIRST_LINE_LAUNCHES = 0
+SHARD_LAUNCHES = 0
 FIXUP_LAUNCHES = 0
 MULTI_LAUNCHES = 0
 MULTI_SHARD_LAUNCHES = 0
@@ -143,8 +146,10 @@ def scan_blocks(
         )
     if err:
         raise RuntimeError(f"scan_blocks kernel launch failed: CUDA error {err}")
-    global LAUNCHES, FIRST_LINE_LAUNCHES
+    global LAUNCHES, MASK_LAUNCHES, FIRST_LINE_LAUNCHES, SHARD_LAUNCHES
     LAUNCHES += 1
+    MASK_LAUNCHES += want_mask and not first_line
+    SHARD_LAUNCHES += start_limit is not None
     if first_line:
         FIRST_LINE_LAUNCHES += 1
         first_line_fixup(stats, mask)

@@ -631,3 +631,159 @@ def test_hamming_modes_on_layout_boundaries(cuda_device, name):
                 assert torch.equal(got[1], want[1]), (cs, ww, kw)
         counts, _ = mxu.hamming_scan(st.u8, st.n_blocks, tables, case_sensitive=cs)
         assert int(counts.sum()) == sum(len(naive.all_starts(text, p, cs, ww)) for p in patterns)
+
+
+# ------------------------------------------------ the word scan (both kernels)
+
+WORD_EDGES = (16 * 7 - 1, 16 * 11 - 2, 512 - 1, 512 * 5 - 3, 8192 - 1, 8192 * 3 - 2,
+              65536 - 1, 65536 - 2)
+
+
+def word_edge_text(kind: str, patterns, size: int = 64 << 20) -> np.ndarray:
+    """64 MiB of the config-1 corpus (a match every few bytes) or of a-z
+    (few), with each of `patterns` planted across lane (16 B), stride
+    (512 B), warp (8 KiB) and block edges of several blocks, after "_^",
+    and to end at the text's end; some lines run over three blocks."""
+    if kind == "corpus":
+        text = bench_hamming.corpus(size)
+    else:
+        text = np.random.default_rng(3).integers(97, 123, size, dtype=np.uint8)
+        text[::4099] = 10
+    rng = np.random.default_rng(8)
+    for at in rng.integers(0, size - 300_000, 6):  # long lines: no newline for 3-4 blocks
+        seg = text[at : at + int(rng.integers(200_000, 300_000))]
+        seg[seg == 10] = 32
+    for i, p in enumerate(patterns):
+        arr = np.frombuffer(p, np.uint8)
+        for b in range(1 + 7 * i, size // 65536 - 1, 97):
+            for e in WORD_EDGES:
+                at = b * 65536 + e
+                text[at : at + len(arr)] = arr
+        at = 65536 * (5 + 3 * i) + 777
+        text[at : at + len(arr) + 2] = np.frombuffer(b"_^" + p, np.uint8)
+    last = np.frombuffer(patterns[-1], np.uint8)
+    text[size - len(last) :] = last
+    return text
+
+
+def word_scan_patterns(text: np.ndarray) -> dict:
+    """Patterns of 1..64 bytes: short words, and longer ones cut from the
+    text at a line start."""
+    nl = int(np.flatnonzero(text[3000:] == 10)[2]) + 3001
+    return {m: {1: b"e", 3: b"the", 5: b"quick"}.get(m) or bytes(text[nl : nl + m])
+            for m in (1, 3, 5, 9, 17, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["corpus", "a-z"])
+def test_k1_word_scan_instances_match_plain(cuda_device, kind):
+    """Every instance of the K=1 scan (length class <= 4, <= 8, > 8; -w;
+    no mask, start mask, first_line) and its shard mode (start_limit inside
+    a lane's 16 bytes, prev_word 0 and 1), with and without -i, against
+    literal.block_stats, exactly, at 64 MiB."""
+    pats = word_scan_patterns(bench_hamming.corpus(1 << 16))
+    text = word_edge_text(kind, tuple(pats.values()))
+    st = dispatch.stage(text, cuda_device)
+    assert st.n_blocks == 1024
+    limit = st.n_blocks * 65536 - 12_345
+    assert limit % 16 not in (0, 15)
+    for m, pat in pats.items():
+        found = 0
+        for cs, ww in [(True, False), (False, False), (True, True), (False, True)]:
+            p = pat if cs else pat.upper()
+            for kw in (dict(), dict(want_mask=True), dict(want_mask=True, mask_kind="first_line"),
+                       dict(prev_word=1, start_limit=limit, want_mask=True),
+                       dict(prev_word=0, start_limit=limit)):
+                kw.update(pattern=p, case_sensitive=cs, whole_word=ww)
+                tl = limit + m - 1 if "start_limit" in kw else st.true_len
+                before = (swar.LAUNCHES, swar.MASK_LAUNCHES, swar.SHARD_LAUNCHES)
+                stats, mask = swar.scan_blocks(st.u8, tl, st.n_blocks, **kw)
+                starts = kw.get("want_mask") and kw.get("mask_kind") != "first_line"
+                assert (swar.LAUNCHES, swar.MASK_LAUNCHES, swar.SHARD_LAUNCHES) == (
+                    before[0] + 1, before[1] + bool(starts), before[2] + ("start_limit" in kw))
+                pstats, pmask = literal.block_stats(st.u8, tl, st.n_blocks, **kw)
+                assert torch.equal(stats, pstats), (m, cs, ww, kw)
+                if mask is not None or pmask is not None:
+                    assert torch.equal(mask, pmask), (m, cs, ww, kw)
+                found += int(stats[:, 0].sum())
+        assert found > 0, m  # the plants matched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["corpus", "a-z"])
+def test_byte_word_scan_instances_match_plain(cuda_device, kind):
+    """Every scan instance of the byte scan (the three length classes, -w,
+    with and without the mask), with and without -i, for patterns of 1 to
+    4096 bytes, and the four variants, against their plain versions,
+    exactly, at 64 MiB."""
+    src = bench_hamming.corpus(1 << 16)
+    nl = int(np.flatnonzero(src[3000:] == 10)[2]) + 3001
+    pats = {m: {1: b"t", 3: b"the", 5: b"quick"}.get(m) or bytes(src[nl : nl + m])
+            for m in (1, 3, 5, 9, 17, 65, 1000)}
+    pats[4096] = bytes(np.resize(src[nl:], 4096))
+    text = word_edge_text(kind, tuple(pats.values()))
+    st = dispatch.stage(text, cuda_device)
+    for m, pat in pats.items():
+        got = None
+        for cs, ww in [(True, False), (False, False), (True, True), (False, True)]:
+            p = pat if cs else pat.upper()
+            for want_mask in (False, True):
+                kw = dict(pattern=p, case_sensitive=cs, whole_word=ww, want_mask=want_mask)
+                stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, st.n_blocks, **kw)
+                pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len, st.n_blocks, **kw)
+                assert torch.equal(stats, pstats), (m, cs, ww, want_mask)
+                if want_mask:
+                    assert torch.equal(mask, pmask), (m, cs, ww)
+                got = got if got is not None else int(stats[:, 0].sum())
+        assert got > 0, m  # the plants matched
+    for mode in bytescan.VARIANTS:
+        for pat in (b"the", pats[17], pats[1000]):
+            got = bytescan.scan_variant(st.u8, st.true_len, st.n_blocks, mode=mode, pattern=pat)
+            want = bytescan.variant_stats_plain(st.u8, st.true_len, st.n_blocks, mode=mode,
+                                                pattern=pat)
+            assert torch.equal(got, want), (mode, len(pat))
+
+
+@pytest.mark.cuda
+def test_word_scan_dense_candidates_match_plain(cuda_device):
+    """Runs of one byte and patterns whose 4-byte prefix repeats: every
+    position of a run passes the filter, so every warp's verify queue is
+    full; both kernels, exactly."""
+    size = 16 << 20
+    text = np.full(size, ord("a"), np.uint8)
+    rng = np.random.default_rng(2)
+    text[rng.integers(0, size, size // 3000)] = ord("b")
+    text[rng.integers(0, size, size // 5000)] = 10
+    st = dispatch.stage(text, cuda_device)
+    for pat in (b"aaaab", b"a" * 8 + b"b", b"a" * 16 + b"b", b"a" * 63 + b"b", b"a" * 64):
+        for kw in (dict(), dict(want_mask=True), dict(want_mask=True, mask_kind="first_line"),
+                   dict(whole_word=True, want_mask=True)):
+            stats, mask = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, pattern=pat, **kw)
+            pstats, pmask = literal.block_stats(st.u8, st.true_len, st.n_blocks, pattern=pat, **kw)
+            assert torch.equal(stats, pstats) and (mask is None or torch.equal(mask, pmask))
+            if not kw:
+                assert int(stats[:, 0].sum()) > 0, pat  # runs of "a" hold every one
+    for pat in (b"a" * 64 + b"b", b"a" * 999 + b"b", b"a" * 16):
+        kw = dict(pattern=pat, want_mask=True)
+        stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, st.n_blocks, **kw)
+        pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len, st.n_blocks, **kw)
+        assert torch.equal(stats, pstats) and torch.equal(mask, pmask), len(pat)
+
+
+@pytest.mark.cuda
+def test_first_line_word_scan_long_lines(cuda_device):
+    """first_line on 64 MiB of lines that span lanes, warps and three or
+    more blocks (line_mix_text's 8 MiB, eight times), against its plain
+    version, exactly; the flags are the first match of each line."""
+    text = np.tile(np.frombuffer(line_mix_text(5, 8 << 20), np.uint8), 8)
+    st = dispatch.stage(text, cuda_device)
+    gaps = np.diff(np.flatnonzero(text == 10))
+    assert int(gaps.max()) > 3 * 65536
+    for pat, cs, ww in ((b"e", True, False), (b"the", False, True), (b"theme", True, False),
+                        (b"the cat x the cat", True, False)):
+        kw = dict(pattern=pat, case_sensitive=cs, whole_word=ww, want_mask=True,
+                  mask_kind="first_line")
+        stats, mask = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
+        pstats, pmask = literal.block_stats(st.u8, st.true_len, st.n_blocks, **kw)
+        assert torch.equal(stats, pstats) and torch.equal(mask, pmask), pat
+        assert int(mask.sum()) == int(lines.combine_block_stats(stats)[1])
