@@ -13,16 +13,22 @@ Phases, each printing what it found:
                slab (shard) stats with a start limit and prev_word, with and
                without -i and -w, for pattern lengths 1, 3, 5, 9, 17 and 64
                (each length class of the word scan; its count and mask
-               instances);
+               instances); in every phase 3, and in 5, each launch's totals
+               (folded by its own last block, the scan tail) are held to
+               lines.combine_block_stats of its rows, and the standalone
+               combine_blocks (the Hamming line mode's rows, the variants')
+               to the same;
   4. main path — the port's CLI on a 1 GiB config-1 corpus (bench.py's
                recipe, seed 12345): `-c the` (twice), `-c -i -w the` and
                `-m 5 -o the` (the slab route), and on its first 64 MiB
                `-o the` and the default line mode. Every stdout and exit
                code must equal `python -m krep_tpu.cli` on the native host
                route (KREP_TPU_HOST_BREAKEVEN=4294967296, no jax and no
-               kernel), and every kernel must have launched. Before the
-               runs, the 1 GiB bucket's pinned host buffer is timed cold
-               and warm;
+               kernel), and every kernel must have launched, the scan
+               tail folding the totals (swar.TAIL_FOLDS > 0) with no
+               combine_blocks launch (also in 4+, 4r's -r -c -e, 4v and
+               4m). Before the runs, the 1 GiB bucket's pinned host buffer
+               is timed cold and warm;
   5. shapes  — both kernels against their plain versions, exactly, at the
                shapes the main path gives them: 1 GiB `-c the` (no mask,
                16,384 blocks), 1 GiB shard stats with -i -w, start_limit and
@@ -33,7 +39,10 @@ Phases, each printing what it found:
                and shard instances for m = 1, 3, 5, 17 and 64 on the 1 GiB
                corpus and on 1 GiB of a-z text, each exact against plain and
                timed beside its bound and its plain time, and the shard
-               instance at the 1 GiB slab (24,576 blocks).
+               instance at the 1 GiB slab (24,576 blocks); the scan tail
+               (the count instance with its tail minus without it) and the
+               standalone combine_blocks at 16,384 and 24,576 rows, each
+               beside its bound and the plain fold.
 The multi-pattern slice (-e/-f) adds, with bench.py's pattern sets rebuilt
 here (PATTERNS_16, config 3; its 64 eight-byte variants, config 3b; 64
 mixed 4-20 byte members, config 3c):
@@ -59,7 +68,8 @@ mixed 4-20 byte members, config 3c):
                timed with CUDA events at 1 GiB: the K-pattern scan at K=16
                and K=64, the Hamming kernel on both sets (each beside its
                bound and torch._int_mm), the lines kernel on a 1 GiB union
-               mask; the K-pattern scan's count and mask instances at K = 2,
+               mask (beside its bound); the K-pattern scan's count and mask
+               instances at K = 2,
                16 and 64 on the corpus and on 1 GiB of a-z text, each beside
                its bound; then the K-pattern scan against the Hamming kernel
                on bench.py's sets at K = 16, 32, 48 and 64 (count only, equal
@@ -136,13 +146,14 @@ cost-attribution variants, the Hamming kernel's want_lines and strict) add:
                on part0, each byte-identical to the native host route; the
                byte scan (with and without a mask) must have launched;
   4b. main path — `python -m krep_tpu_torch.tools.bench_kernel` as a user
-               runs it (256 MiB): each variant equal to its plain version;
+               runs it (256 MiB): each variant equal to its plain version,
+               its rows folded by combine_blocks;
   4h. main path — the CLI under KREP_TPU_MXU_LINES=inkernel: `-c -f` with
                the 64 variants and `-c` / `-w -c` with the mixed set on
                1 GiB, each equal to the default route's output, and `-c -f`
                with the 64 variants on 16 MiB byte-identical to the native
-               host route; the line mode must have launched and the lines
-               kernel not;
+               host route; the line mode and combine_blocks (its rows'
+               fold) must have launched and the lines kernel not;
   4s. main path — bench.py's strict counts (fused_count_device(strict=True)
                on the 1 GiB staging and its with_len views), each equal to
                the -c -o count of phase 4+ adjusted at the new end;
@@ -481,10 +492,35 @@ def reset_launches() -> None:
 
     swar.LAUNCHES = swar.COMBINE_LAUNCHES = swar.MULTI_LAUNCHES = swar.LINES_LAUNCHES = 0
     swar.FIRST_LINE_LAUNCHES = swar.FIXUP_LAUNCHES = swar.MULTI_SHARD_LAUNCHES = 0
-    swar.MASK_LAUNCHES = swar.SHARD_LAUNCHES = 0
+    swar.MASK_LAUNCHES = swar.SHARD_LAUNCHES = swar.TAIL_FOLDS = 0
     mxu.LAUNCHES = mxu.SHARD_LAUNCHES = mxu.LINES_LAUNCHES = mxu.STRICT_LAUNCHES = 0
     bytescan.LAUNCHES = bytescan.MASK_LAUNCHES = 0
     bytescan.VARIANT_LAUNCHES.update(dict.fromkeys(bytescan.VARIANTS, 0))
+
+
+TAIL = "combine (scan tail)"  # the launches that folded their own totals (swar.TAIL_FOLDS)
+
+
+def note_tail(max_err: dict, stats: torch.Tensor, totals: torch.Tensor) -> None:
+    """Folds the scan tail's difference from its plain version (the
+    totals of a launch against lines.combine_block_stats of its rows) into
+    max_err[TAIL]."""
+    from krep_tpu_torch.parallel import lines
+
+    err = int((totals - lines.combine_block_stats(stats)).abs().max())
+    max_err[TAIL] = max(max_err.get(TAIL, 0), err)
+
+
+def note_combine(max_err: dict, stats: torch.Tensor) -> torch.Tensor:
+    """The standalone combine_blocks on `stats` against its plain version,
+    into max_err["combine_blocks"]; returns its totals."""
+    from krep_tpu_torch.ops import swar
+    from krep_tpu_torch.parallel import lines
+
+    tot = swar.combine_blocks(stats)
+    err = int((tot - lines.combine_block_stats(stats)).abs().max())
+    max_err["combine_blocks"] = max(max_err.get("combine_blocks", 0), err)
+    return tot
 
 
 def read_launches(*names: str) -> dict:
@@ -492,6 +528,7 @@ def read_launches(*names: str) -> dict:
     from krep_tpu_torch.ops import bytescan, mxu, swar
 
     counts = {"scan_blocks": swar.LAUNCHES, "combine_blocks": swar.COMBINE_LAUNCHES,
+              TAIL: swar.TAIL_FOLDS,
               "scan_blocks mask": swar.MASK_LAUNCHES, "scan_blocks shard": swar.SHARD_LAUNCHES,
               "scan_blocks first_line": swar.FIRST_LINE_LAUNCHES,
               "first_line_fixup": swar.FIXUP_LAUNCHES,
@@ -562,18 +599,23 @@ def multi_kernels_vs_plain(st, max_err, say_prefix: str, *, patterns, case_sensi
     """One multi-pattern kernel ("fused": scan_blocks_multi, its mask and
     count instances; "hamming": hamming_scan) and the lines kernel on its
     union mask against their plain versions; folds the differences into
-    max_err, returns the kernel's (per-block counts, mask)."""
+    max_err (the fused route's and the lines kernel's totals under TAIL),
+    returns the kernel's (per-block counts, mask)."""
     from krep_tpu_torch.ops import literal, mxu, swar
 
     kw = dict(case_sensitive=case_sensitive, whole_word=whole_word, want_mask=True)
     if route == "fused":
-        stats, mask = swar.scan_blocks_multi(st.u8, st.true_len, st.n_blocks, patterns=patterns, **kw)
+        stats, mask, totals = swar.scan_blocks_multi(st.u8, st.true_len, st.n_blocks,
+                                                     patterns=patterns, **kw)
         pstats, pmask = literal.block_stats_multi(
             st.u8, st.true_len, st.n_blocks, patterns=patterns, **kw)
         name, counts = "scan_blocks_multi", stats[:, 0]
         kw["want_mask"] = False  # the count instance of the same set
-        cstats, _ = swar.scan_blocks_multi(st.u8, st.true_len, st.n_blocks, patterns=patterns, **kw)
+        cstats, _, ctotals = swar.scan_blocks_multi(st.u8, st.true_len, st.n_blocks,
+                                                    patterns=patterns, **kw)
         err = max(int((stats - pstats).abs().max()), int((cstats - pstats).abs().max()))
+        note_tail(max_err, stats, totals)
+        note_tail(max_err, cstats, ctotals)
     else:
         tables = mxu.device_tables(mxu.build_tables(patterns, case_sensitive, whole_word), st.u8.device)
         kw.pop("whole_word")  # built into the tables
@@ -583,10 +625,10 @@ def multi_kernels_vs_plain(st, max_err, say_prefix: str, *, patterns, case_sensi
         err = int((counts - pcounts).abs().max())
     err = max(err, int((mask != pmask).any()))
     max_err[name] = max(max_err[name], err)
-    lstats = swar.lines_blocks(st.u8, mask, st.n_blocks)
+    lstats, tot = swar.lines_blocks(st.u8, mask, st.n_blocks)
     lerr = int((lstats - literal.lines_block_stats(st.u8, mask, st.n_blocks)).abs().max())
     max_err["lines_blocks"] = max(max_err["lines_blocks"], lerr)
-    tot = swar.combine_blocks(lstats)
+    note_tail(max_err, lstats, tot)
     say(f"{say_prefix}: {name} K={len(patterns)} cs={case_sensitive} -w={whole_word}: "
         f"{int(counts.sum())} matches, {int(tot[1])} lines, errors {err}/{lerr}")
     return counts, mask
@@ -604,12 +646,14 @@ def shard_modes_vs_plain(st, max_err, route: str, true_len, start_limit: int, pr
     if route == "fused":
         kw = dict(patterns=patterns, case_sensitive=case_sensitive, whole_word=whole_word,
                   prev_word=prev, start_limit=start_limit, want_mask=True)
-        stats, mask = swar.scan_blocks_multi(st.u8, true_len, st.n_blocks, **kw)
+        stats, mask, totals = swar.scan_blocks_multi(st.u8, true_len, st.n_blocks, **kw)
         pstats, pmask = literal.block_stats_multi(st.u8, true_len, st.n_blocks, **kw)
         name, counts = "scan_blocks_multi shard", stats[:, 0]
-        cstats, _ = swar.scan_blocks_multi(st.u8, true_len, st.n_blocks,
-                                           **dict(kw, want_mask=False))
+        cstats, _, ctotals = swar.scan_blocks_multi(st.u8, true_len, st.n_blocks,
+                                                    **dict(kw, want_mask=False))
         err = max(int((stats - pstats).abs().max()), int((cstats - pstats).abs().max()))
+        note_tail(max_err, stats, totals)
+        note_tail(max_err, cstats, ctotals)
     else:
         tables = mxu.device_tables(mxu.build_tables(patterns, case_sensitive, whole_word),
                                    st.u8.device)
@@ -716,16 +760,15 @@ def main() -> int:
             f.write(head[:MIB16])
         say(f"corpus: 1 GiB + 64 MiB + 16 MiB written in {time.perf_counter() - t0:.1f} s")
 
-        max_err = {"scan_blocks": 0, "combine_blocks": 0, "scan_blocks mask": 0,
+        max_err = {"scan_blocks": 0, "combine_blocks": 0, TAIL: 0, "scan_blocks mask": 0,
                    "scan_blocks shard": 0}
 
         def kernels_vs_plain(st, **kw):
-            """Both kernels against their plain versions on one staged text;
-            folds the differences into max_err (the start-mask and shard
-            instances also under their own names) and returns the kernels'
-            (totals, mask)."""
-            stats, mask = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
-            tot = swar.combine_blocks(stats)
+            """The scan and its tail against their plain versions on one
+            staged text; folds the differences into max_err (the start-mask
+            and shard instances also under their own names) and returns the
+            kernel's (totals, mask)."""
+            stats, mask, tot = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
             pstats, pmask = literal.block_stats(st.u8, st.true_len, st.n_blocks, **kw)
             errs = [int((stats - pstats).abs().max())]
             if kw.get("want_mask"):
@@ -734,10 +777,7 @@ def main() -> int:
                 ["scan_blocks shard"] if kw.get("start_limit") is not None else [])
             for name in names:
                 max_err[name] = max(max_err[name], *errs)
-            max_err["combine_blocks"] = max(
-                max_err["combine_blocks"],
-                int((tot - lines.combine_block_stats(stats)).abs().max()),
-            )
+            note_tail(max_err, stats, tot)
             return tot, mask
 
         # 3. kernels against their plain versions, exactly
@@ -829,11 +869,13 @@ def main() -> int:
         def first_line_vs_plain(staged, **kw):
             """The first_line scan and fix-up against literal.block_stats'
             first_line mode and the fix-up's plain twin; folds the
-            differences into max_err, returns (stats, mask)."""
+            differences into max_err, returns (stats, mask, totals)."""
             kw.update(want_mask=True, mask_kind="first_line")
-            stats, mask = swar.scan_blocks(staged.u8, staged.true_len, staged.n_blocks, **kw)
+            stats, mask, totals = swar.scan_blocks(staged.u8, staged.true_len, staged.n_blocks,
+                                                   **kw)
             pstats, pmask = literal.block_stats(staged.u8, staged.true_len, staged.n_blocks, **kw)
             err = max(int((stats - pstats).abs().max()), int((mask != pmask).any()))
+            note_tail(max_err, stats, totals)
             max_err["scan_blocks first_line"] = max(max_err["scan_blocks first_line"], err)
             # the fix-up alone, from the block-by-block flags (the clears undone)
             blockwise = mask.clone()
@@ -842,7 +884,7 @@ def main() -> int:
             ferr = int((fixed != lines.first_line_fixup(stats, blockwise)).any())
             ferr = max(ferr, int((fixed != mask).any()))
             max_err["first_line_fixup"] = max(max_err["first_line_fixup"], ferr)
-            return stats, mask
+            return stats, mask, totals
 
         nl_free = None
         line_start = int(np.flatnonzero(ltext[5000:] == 10)[3]) + 5001
@@ -851,9 +893,8 @@ def main() -> int:
             got = []
             for cs in (True, False):
                 for ww in (False, True):
-                    stats, mask = first_line_vs_plain(st, pattern=pat, case_sensitive=cs,
-                                                      whole_word=ww)
-                    tot = swar.combine_blocks(stats)
+                    stats, mask, tot = first_line_vs_plain(st, pattern=pat, case_sensitive=cs,
+                                                           whole_word=ww)
                     flags = int(mask.sum(dtype=torch.int64))
                     check(flags == int(tot[1]), f"first_line flags {flags} != lines {int(tot[1])}")
                     got.append([int(tot[0]), flags, int((stats[:, 5] >= 0).sum())])
@@ -863,8 +904,8 @@ def main() -> int:
         gaps = np.diff(np.flatnonzero(ltext == 10))
         check(nl_free > 0 and int(gaps.max()) > 3 * 65536, "the text lacks long lines")
         torch.cuda.synchronize()
-        check(max_err["scan_blocks first_line"] == 0 and max_err["first_line_fixup"] == 0,
-              f"first_line kernel != plain: {max_err}")
+        check(max_err["scan_blocks first_line"] == 0 and max_err["first_line_fixup"] == 0
+              and max_err[TAIL] == 0, f"first_line kernel != plain: {max_err}")
         say(f"first_line kernels vs plain at 64 MiB: 20 cases, all exact; {nl_free} of "
             f"{st.n_blocks} blocks hold no newline, longest line {int(gaps.max())} bytes")
         del st, stats, mask, tot, ltext
@@ -901,8 +942,8 @@ def main() -> int:
             say(f"shard mode vs plain at 64 MiB: hamming_scan K={len(pats)} limit={limit}: "
                 f"[matches, mask bytes] of the last case {got}")
         torch.cuda.synchronize()
-        check(max_err["scan_blocks_multi shard"] == 0 and max_err["hamming_scan shard"] == 0,
-              f"shard mode != plain: {max_err}")
+        check(max_err["scan_blocks_multi shard"] == 0 and max_err["hamming_scan shard"] == 0
+              and max_err[TAIL] == 0, f"shard mode != plain: {max_err}")
         say(f"shard modes vs plain at 64 MiB: {n_shard} cases, all exact")
         del st, stext
 
@@ -937,8 +978,9 @@ def main() -> int:
                     for want_mask in (False, True):
                         kw = dict(pattern=pat, case_sensitive=cs, whole_word=ww,
                                   want_mask=want_mask)
-                        stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, st.n_blocks,
-                                                                 **kw)
+                        stats, mask, tot = bytescan.scan_blocks_bytes(st.u8, st.true_len,
+                                                                      st.n_blocks, **kw)
+                        note_tail(max_err, stats, tot)
                         pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len,
                                                                    st.n_blocks, **kw)
                         err = int((stats - pstats).abs().max())
@@ -947,7 +989,6 @@ def main() -> int:
                         name = "scan_bytes mask" if want_mask else "scan_bytes"
                         max_err[name] = max(max_err[name], err)
                         n_v += 1
-                    tot = swar.combine_blocks(stats)
                     got.append(tot[:2].tolist())
             check(m <= 5 or got[0][0] >= 5, f"the plants of m={m} did not match: {got}")
             say(f"byte scan vs plain: m={m} exact; [matches, lines] for (cs, -w, -i, -i -w): {got}")
@@ -956,9 +997,10 @@ def main() -> int:
             stats = bytescan.scan_variant(st.u8, st.true_len, st.n_blocks, mode=v)
             pstats = bytescan.variant_stats_plain(st.u8, st.true_len, st.n_blocks, mode=v)
             max_err[f"bench_kernel {v}"] = int((stats - pstats).abs().max())
-            say(f"variant vs plain at 64 MiB: {v}: {swar.combine_blocks(stats)[:2].tolist()}")
+            say(f"variant vs plain at 64 MiB: {v}: {note_combine(max_err, stats)[:2].tolist()}")
         torch.cuda.synchronize()
-        check(all(max_err[k] == 0 for k in max_err if k.startswith(("scan_bytes", "bench_kernel"))),
+        check(all(max_err[k] == 0 for k in max_err
+                  if k.startswith(("scan_bytes", "bench_kernel", "combine"))),
               f"byte scan != plain: {max_err}")
         say(f"byte scan vs plain at 64 MiB: {n_v} cases and 4 variants, all exact")
         vpath = os.path.join(workdir, "plants_64m.txt")
@@ -990,7 +1032,7 @@ def main() -> int:
             err = int((stats - pstats).abs().max())
             max_err["hamming_scan lines"] = max(max_err["hamming_scan lines"], err)
             say(f"Hamming lines vs plain at 64 MiB: K={len(pats)} cs={cs} -w={ww}: "
-                f"[matches, lines] {swar.combine_blocks(stats)[:2].tolist()}, error {err}")
+                f"[matches, lines] {note_combine(max_err, stats)[:2].tolist()}, error {err}")
         for pats in (pats64, pats_mixed):
             for ww in (False, True):
                 tables = mxu.device_tables(mxu.build_tables(pats, True, ww), dev)
@@ -1007,9 +1049,10 @@ def main() -> int:
                     f"views n - (0, 1, 17, 4095): {got}")
                 check(len(set(got)) > 1, "strict: the views' ends changed no count")
         torch.cuda.synchronize()
-        check(max_err["hamming_scan lines"] == 0 and max_err["hamming_scan strict"] == 0,
-              f"Hamming modes != plain: {max_err}")
-        say("Hamming line and strict modes vs plain at 64 MiB: 21 cases, all exact")
+        check(max_err["hamming_scan lines"] == 0 and max_err["hamming_scan strict"] == 0
+              and max_err["combine_blocks"] == 0, f"Hamming modes != plain: {max_err}")
+        say("Hamming line and strict modes vs plain at 64 MiB: 21 cases, all exact (the line "
+            "mode's rows folded by the standalone combine_blocks, exact too)")
         del st, htext, stats, pstats, counts, mask, pcounts, pmask
 
         # 4. main path through the CLI, held to the native host route.
@@ -1060,14 +1103,22 @@ def main() -> int:
                 say(f"  stdout: {out!r}")
             check(same, f"port output differs from the native host route for {label}")
 
+        def check_tail(counts: dict, what: str) -> None:
+            """The scan tail folded the totals of `what` and the standalone
+            combine_blocks never launched."""
+            check(counts[TAIL] > 0 and counts["combine_blocks"] == 0,
+                  f"{what}: the scan tail did not fold the totals alone: {counts}")
+
         reset_launches()
         outs = [port_cli(args) for args, _ in runs]
-        launches = read_launches("scan_blocks", "combine_blocks", "scan_blocks mask",
-                                 "scan_blocks shard")
+        launches = read_launches("scan_blocks", TAIL, "scan_blocks mask", "scan_blocks shard",
+                                 "combine_blocks")
         for (args, nbytes), got, ref in zip(runs, outs, refs):
             check_identical(args, nbytes, got, ref)
         say(f"launches during the main path: {launches}")
-        check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+        check_tail(launches, "the main path")
+        check(all(launches[k] > 0 for k in launches if k != "combine_blocks"),
+              f"a kernel never launched: {launches}")
 
         # 4+. the multi-pattern main path through the CLI: on 64 MiB held to
         # the native host route, on 1 GiB to single-pattern identities below
@@ -1100,12 +1151,14 @@ def main() -> int:
         reset_launches()
         big_outs = [port_cli(args) for args, _ in big_runs]
         small_outs = [port_cli(args) for args, _ in small_runs]
-        mlaunches = read_launches("scan_blocks", "combine_blocks", "scan_blocks_multi",
-                                  "lines_blocks", "hamming_scan")
+        mlaunches = read_launches("scan_blocks", TAIL, "scan_blocks_multi", "lines_blocks",
+                                  "hamming_scan", "combine_blocks")
         for (args, nbytes), got, ref in zip(small_runs, small_outs, small_refs):
             check_identical(args, nbytes, got, ref)
         say(f"launches during the multi-pattern main path: {mlaunches}")
-        check(all(v > 0 for v in mlaunches.values()), f"a kernel never launched: {mlaunches}")
+        check_tail(mlaunches, "the multi-pattern main path")
+        check(all(mlaunches[k] > 0 for k in mlaunches if k != "combine_blocks"),
+              f"a kernel never launched: {mlaunches}")
 
         # 4r. recursive search through the walker and the batched scan, on
         # a config-5 tree scaled up and on the config-5 tree itself, held to
@@ -1200,16 +1253,18 @@ def main() -> int:
             say(f"-r walk and read alone (part0, --gitignore, no scan): {dt:.3f} s for {n_walked} "
                 f"files, {walked} bytes, {n_walked / dt:.0f} files/s [{card}]")
             reset_launches()
-            r_outs, r_batches, r_spent, first_rc = [], [], [], None
+            r_outs, r_batches, r_spent, first_rc, solo_rce = [], [], [], None, None
             for args in r_runs:
+                if args[-3:-1] == ["-e", "fox"]:
+                    reset_launches()
                 reset_spent()
                 r_outs.append(port_cli(args))
                 r_batches.append(list(batch_sizes))
                 r_spent.append(dict(spent))
                 if first_rc is None:  # the -r -c run alone
                     first_rc = read_launches("scan_blocks first_line", "first_line_fixup")
-            rlaunches = read_launches("scan_blocks", "combine_blocks", "scan_blocks first_line",
-                                      "first_line_fixup", "scan_blocks_multi")
+                if args[-3:-1] == ["-e", "fox"]:  # the solo -r -c -e run alone
+                    solo_rce = read_launches("scan_blocks_multi", TAIL, "combine_blocks")
             c5_outs = {}
             for be in (None, "0"):  # the 32 MiB default (host route), then the device route
                 if be is None:
@@ -1240,10 +1295,12 @@ def main() -> int:
             nfiles = got[0].count(b"\n")
             say(f"  config-5 tree, {label}: {got[2]:.3f} s, {len(sizes)} batches, {nfiles} files, "
                 f"{nfiles / got[2]:.0f} files/s [{card}]")
-        say(f"launches during -r --gitignore -c: {first_rc}; during the -r main path: {rlaunches}")
+        say(f"launches during -r --gitignore -c: {first_rc}; during the solo -r -c -e: "
+            f"{solo_rce}")
         check(all(v > 0 for v in first_rc.values()), f"-r -c did not run first_line: {first_rc}")
-        check(all(v > 0 for v in rlaunches.values()), f"a kernel never launched: {rlaunches}")
-        launches.update({k: rlaunches[k] for k in ("scan_blocks first_line", "first_line_fixup")})
+        check(solo_rce["scan_blocks_multi"] > 0, f"-r -c -e never launched: {solo_rce}")
+        check_tail(solo_rce, "the solo -r -c -e")
+        launches.update(first_rc)
         del r_outs, c5_outs
 
         # 4v. KREP_TPU_BACKEND=pallas: the byte scan on the single-array
@@ -1263,11 +1320,13 @@ def main() -> int:
         with env_set("KREP_TPU_BACKEND", "pallas"):
             reset_launches()
             v_outs = [port_cli(args) for args, _, _ in v_runs]
-            vlaunches = read_launches("scan_bytes", "scan_bytes mask", "combine_blocks")
+            vlaunches = read_launches("scan_bytes", "scan_bytes mask", TAIL, "combine_blocks")
         for (args, nbytes, ref), got in zip(v_runs, v_outs):
             check_identical(args, nbytes, got, ref)
         say(f"launches under KREP_TPU_BACKEND=pallas: {vlaunches}")
-        check(all(v > 0 for v in vlaunches.values()), f"the byte scan never launched: {vlaunches}")
+        check_tail(vlaunches, "KREP_TPU_BACKEND=pallas")
+        check(vlaunches["scan_bytes"] > 0 and vlaunches["scan_bytes mask"] > 0,
+              f"the byte scan never launched: {vlaunches}")
         launches.update({k: vlaunches[k] for k in ("scan_bytes", "scan_bytes mask")})
         del v_outs, r_refs
 
@@ -1278,11 +1337,13 @@ def main() -> int:
         reset_launches()
         t0 = time.perf_counter()
         rc = bench_kernel.main([])
-        blaunches = read_launches(*(f"bench_kernel {v}" for v in bytescan.VARIANTS))
+        blaunches = read_launches(*(f"bench_kernel {v}" for v in bytescan.VARIANTS),
+                                  "combine_blocks")
         say(f"bench_kernel: rc={rc}, {time.perf_counter() - t0:.1f} s, launches {blaunches} [{card}]")
         check(rc == 0, "bench_kernel: a variant differs from its plain version")
-        check(all(v > 0 for v in blaunches.values()), f"a variant never launched: {blaunches}")
-        launches.update(blaunches)
+        check(all(v > 0 for v in blaunches.values()),
+              f"a variant or the combine of its rows never launched: {blaunches}")
+        launches.update({k: n for k, n in blaunches.items() if k != "combine_blocks"})
 
         # 4h. KREP_TPU_MXU_LINES=inkernel: multi-pattern -c counts its lines in
         # the Hamming kernel; each count equal to the default (chained)
@@ -1304,7 +1365,9 @@ def main() -> int:
         say(f"launches under KREP_TPU_MXU_LINES=inkernel: {hlaunches}")
         check(hlaunches["hamming_scan lines"] == 4 and hlaunches["lines_blocks"] == 0,
               f"the in-kernel line mode did not carry -c: {hlaunches}")
-        launches["hamming_scan lines"] = hlaunches["hamming_scan lines"]
+        check(hlaunches["combine_blocks"] > 0,
+              f"the line mode's rows were not folded by combine_blocks: {hlaunches}")
+        launches.update({k: hlaunches[k] for k in ("hamming_scan lines", "combine_blocks")})
         del h_outs, h_default
 
         # 4m. the sharded route (parallel/mesh.py) through the port's own
@@ -1382,8 +1445,8 @@ def main() -> int:
                           for _, p, nbytes in mesh_runs]
             cli_outs = [meshes_of(lambda: port_cli(args, one_card=False))
                         for args, _, _, _ in cli_mesh_runs]
-            mesh_launches = read_launches("scan_blocks", "combine_blocks",
-                                          "scan_blocks_multi shard", "hamming_scan shard")
+            mesh_launches = read_launches("scan_blocks", TAIL, "scan_blocks_multi shard",
+                                          "hamming_scan shard", "combine_blocks")
             # -t N shapes the mesh of a machine of eight devices
             mesh_mod.devices = lambda device: (dev,) * 8
             edge_outs = [(d, args, meshes_of(lambda: port_cli(["-t", str(d), *args, edge_path],
@@ -1415,7 +1478,9 @@ def main() -> int:
             check(same, f"-t {d} differs from the native host route: {args}")
             check(shards and set(shards) == {d}, f"-t {d} staged meshes of {shards}")
         say(f"launches during the sharded route: {mesh_launches}")
-        check(all(v > 0 for v in mesh_launches.values()), f"a kernel never launched: {mesh_launches}")
+        check_tail(mesh_launches, "the sharded route")
+        check(all(mesh_launches[k] > 0 for k in mesh_launches if k != "combine_blocks"),
+              f"a kernel never launched: {mesh_launches}")
         launches.update({k: mesh_launches[k] for k in ("scan_blocks_multi shard",
                                                        "hamming_scan shard")})
         del shard_outs, cli_outs, edge_outs
@@ -1474,25 +1539,66 @@ def main() -> int:
         check(max(max_err.values()) == 0, f"kernel != plain at the main path's shapes: {max_err}")
         del shapes, slab, staged, tot
         kw = dict(pattern=b"the")
-        stats, _ = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
+        stats, _, _ = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
         timing = {
             "scan_blocks": (
                 cuda_ms(lambda: swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw), 20),
                 cuda_ms(lambda: literal.block_stats(st.u8, st.true_len, st.n_blocks, **kw), 3),
             ),
-            "combine_blocks": (
-                cuda_ms(lambda: swar.combine_blocks(stats), 200),
-                cuda_ms(lambda: lines.combine_block_stats(stats), 20),
-            ),
         }
         plain_scan_ms = cuda_ms(
             lambda: literal.scan_literal(st.u8, st.true_len, pattern=b"the", want_mask=False), 2
         )
-        for name, (k_ms, p_ms) in timing.items():
-            say(f"timing 1 GiB -c the: {name} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
-        say(f"timing 1 GiB -c the: plain literal.scan_literal {plain_scan_ms:.4f} ms, "
-            f"kernels {sum(t[0] for t in timing.values()):.4f} ms "
-            f"({GIB / (timing['scan_blocks'][0] + timing['combine_blocks'][0]) / 1e6:.1f} GB/s) [{card}]")
+        say(f"timing 1 GiB -c the: scan_blocks (count instance and its tail, one launch) "
+            f"kernel {timing['scan_blocks'][0]:.4f} ms, plain {timing['scan_blocks'][1]:.4f} ms; "
+            f"plain literal.scan_literal {plain_scan_ms:.4f} ms; the query's kernels "
+            f"{timing['scan_blocks'][0]:.4f} ms ({GIB / timing['scan_blocks'][0] / 1e6:.1f} GB/s) "
+            f"[{card}]")
+
+        def tail_and_combine(u8, true_len, n_blocks, start_limit, rows, label):
+            """The scan tail and the standalone combine_blocks on the count
+            instance's rows of "the" at n_blocks rows: the tail's time is
+            the count instance launched with its tail minus without it
+            (krep_scan_blocks with no totals; 3 rounds in turns, medians),
+            the combine's a launch of its own; each beside its bound and
+            the plain fold. Returns {name: (ms, plain ms)} and the bound."""
+            lib = _build.library()
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            scratch = swar.tail_scratch(dev, stream)
+            out = torch.empty((n_blocks, 8), dtype=torch.int32, device=dev)
+            tot = torch.empty(8, dtype=torch.int32, device=dev)
+
+            def scan(with_tail):
+                err = lib.krep_scan_blocks(
+                    u8.data_ptr(), n_blocks, b"the", 3, 0, 0, int(true_len), 0, int(start_limit),
+                    0, None, out.data_ptr(), tot.data_ptr() if with_tail else None,
+                    scratch.data_ptr() if with_tail else None, stream)
+                check(err == 0, f"krep_scan_blocks: CUDA error {err}")
+
+            scan(True)
+            check(torch.equal(out, rows), f"{label}: krep_scan_blocks differs from the wrapper")
+            note_tail(max_err, out, tot)
+            note_combine(max_err, rows)
+            w, wo = [], []
+            for _ in range(3):
+                w.append(cuda_ms(lambda: scan(True), 20))
+                wo.append(cuda_ms(lambda: scan(False), 20))
+            w, wo = sorted(w)[1], sorted(wo)[1]
+            plain_ms = cuda_ms(lambda: lines.combine_block_stats(rows), 20)
+            out_ms = {TAIL: (w - wo, plain_ms),
+                      "combine_blocks": (cuda_ms(lambda: swar.combine_blocks(rows), 200), plain_ms)}
+            b = bound(32 * n_blocks + 32)
+            say(f"timing {label} ({n_blocks} rows): the count instance with its tail {w:.4f} ms, "
+                f"without {wo:.4f} ms: the tail {w - wo:.4f} ms; the standalone combine_blocks "
+                f"{out_ms['combine_blocks'][0]:.4f} ms; plain lines.combine_block_stats "
+                f"{plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}) [{card}]")
+            return out_ms, b
+
+        fold_ms, fold_bound = tail_and_combine(st.u8, st.true_len, st.n_blocks, swar.NO_LIMIT,
+                                               stats, "1 GiB -c the")
+        timing.update(fold_ms)
+        check(max_err[TAIL] == 0 and max_err["combine_blocks"] == 0,
+              f"the folds != plain at 1 GiB: {max_err}")
 
         # the word scan's K=1 instances at 1 GiB, on the corpus and on a-z
         # text (bench_scan's cases): count, -i -w count, start mask and
@@ -1511,9 +1617,10 @@ def main() -> int:
                     continue
                 tl = wst.true_len if tl is None else tl
                 kw = dict(kw, pattern=pat)
-                stats, mask = swar.scan_blocks(wst.u8, tl, wst.n_blocks, **kw)
+                stats, mask, totals = swar.scan_blocks(wst.u8, tl, wst.n_blocks, **kw)
                 pstats, pmask = literal.block_stats(wst.u8, tl, wst.n_blocks, **kw)
                 err = int((stats - pstats).abs().max())
+                note_tail(max_err, stats, totals)
                 if mask is not None:
                     err = max(err, int((mask != pmask).any()))
                 key = ("scan_blocks mask" if name.endswith(" mask") else
@@ -1526,7 +1633,7 @@ def main() -> int:
                 say(f"timing 1 GiB {tname}: scan_blocks {name} {k_ms:.4f} ms, plain {p_ms:.4f} "
                     f"ms, bound {b_ms:.4f} ms ({b_by}), {int(stats[:, 0].sum())} matches, error "
                     f"{err} [{card}]")
-                del stats, mask, pstats, pmask
+                del stats, mask, pstats, pmask, totals
             del wst, src
         check(max(max_err.values()) == 0, f"word scan != plain at 1 GiB: {max_err}")
         slab = dispatch.stage(np.concatenate([corpus[:GIB], corpus[:3]]), dev, true_len=GIB + 2)
@@ -1541,7 +1648,11 @@ def main() -> int:
             f"{shard_slab[0]:.4f} ms, plain {shard_slab[1]:.4f} ms, bound {slab_bound[0]:.4f} ms "
             f"({slab_bound[1]}); the count instance on the 1 GiB staging "
             f"{word_ms[('corpus', 'm=3 count')][0]:.4f} ms [{card}]")
-        del slab
+        srows, _, _ = swar.scan_blocks(slab.u8, slab.true_len, slab.n_blocks, **skw)
+        tail_and_combine(slab.u8, slab.true_len, slab.n_blocks, GIB, srows, "the 1 GiB slab")
+        check(max_err[TAIL] == 0 and max_err["combine_blocks"] == 0,
+              f"the folds != plain at the 1 GiB slab: {max_err}")
+        del slab, srows
         timing["scan_blocks mask"] = word_ms[("corpus", "m=3 mask")][:2]
         timing["scan_blocks shard"] = shard_slab
 
@@ -1610,7 +1721,7 @@ def main() -> int:
         for k in (16, 32, 48, 64):
             pk = variant_set(k)
             tk = mxu.device_tables(mxu.build_tables(pk, True), dev)
-            fstats, _ = swar.scan_blocks_multi(st.u8, st.true_len, n_blk, patterns=pk)
+            fstats, _, _ = swar.scan_blocks_multi(st.u8, st.true_len, n_blk, patterns=pk)
             hcounts, _ = mxu.hamming_scan(st.u8, n_blk, tk)
             check(torch.equal(fstats[:, 0], hcounts), f"K={k}: the two kernels' counts differ")
             f_ms = cuda_ms(fused(pk), 3)
@@ -1630,12 +1741,16 @@ def main() -> int:
             "scan_blocks": bound(body + 64 + 32 * st.n_blocks),
             "scan_blocks mask": word_ms[("corpus", "m=3 mask")][2],
             "scan_blocks shard": slab_bound,
-            "combine_blocks": bound(32 * st.n_blocks + 32),
+            "combine_blocks": fold_bound,
+            TAIL: fold_bound,
             "scan_blocks_multi": bound(body + 64 + swar.MULTI_TABLE_BYTES + 32 * n_blk),
-            "lines_blocks": bound(2 * body + 32 * n_blk),
+            "lines_blocks": bound(2 * body + 32 * n_blk + 32),
             "hamming_scan": bound(body + 64 + t64.g1_frags.numel() + t64.rows.numel() * 4
                                   + 4 * n_blk, hamming_ops, INT8_PEAK),
         }
+        say(f"timing 1 GiB multi-pattern: lines_blocks (and its tail) on the 16 literals' union "
+            f"mask {mtiming['lines_blocks'][0]:.4f} ms, plain {mtiming['lines_blocks'][1]:.4f} ms, "
+            f"bound {bounds['lines_blocks'][0]:.4f} ms ({bounds['lines_blocks'][1]}) [{card}]")
         library = {"hamming_scan": int_mm_ms(st, g1)}
         say(f"library yardstick: torch._int_mm of the Hamming kernel's G (64 variants, "
             f"{tuple(g1.shape)}) against the window-bit features of 1 GiB, in 4 Mi-word "
@@ -1679,24 +1794,26 @@ def main() -> int:
         # `-c the` shape: exact against plain, then timed
         for want_mask in (False, True):
             kw = dict(pattern=b"the", want_mask=want_mask)
-            stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, n_blk, **kw)
+            stats, mask, totals = bytescan.scan_blocks_bytes(st.u8, st.true_len, n_blk, **kw)
             pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len, n_blk, **kw)
             err = int((stats - pstats).abs().max())
             if want_mask:
                 err = max(err, int((mask != pmask).any()))
             name = "scan_bytes mask" if want_mask else "scan_bytes"
             max_err[name] = max(max_err[name], err)
-            say(f"byte scan vs plain at 1 GiB, mask={want_mask}: "
-                f"{swar.combine_blocks(stats)[:5].tolist()}, error {err}")
-        del stats, mask, pstats, pmask
+            note_tail(max_err, stats, totals)
+            say(f"byte scan vs plain at 1 GiB, mask={want_mask}: {totals[:5].tolist()}, "
+                f"error {err}")
+        del stats, mask, pstats, pmask, totals
         for v in bytescan.VARIANTS:
             got = bytescan.scan_variant(st.u8, st.true_len, n_blk, mode=v)
             want = bytescan.variant_stats_plain(st.u8, st.true_len, n_blk, mode=v)
             err = int((got - want).abs().max())
             max_err[f"bench_kernel {v}"] = max(max_err[f"bench_kernel {v}"], err)
-            say(f"variant vs plain at 1 GiB: {v}: {swar.combine_blocks(got)[:2].tolist()}, "
+            say(f"variant vs plain at 1 GiB: {v}: {note_combine(max_err, got)[:2].tolist()}, "
                 f"error {err}")
-        check(all(max_err[k] == 0 for k in max_err if k.startswith(("scan_bytes", "bench_kernel"))),
+        check(all(max_err[k] == 0 for k in max_err
+                  if k.startswith(("scan_bytes", "bench_kernel", "combine"))),
               f"byte scan != plain at 1 GiB: {max_err}")
 
         def byte_scan(**kw):
@@ -1740,13 +1857,14 @@ def main() -> int:
             lpat = bytes(corpus[nl0 : nl0 + m])
             for want_mask in (False, True):
                 kw = dict(pattern=lpat, want_mask=want_mask)
-                stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, n_blk, **kw)
+                stats, mask, totals = bytescan.scan_blocks_bytes(st.u8, st.true_len, n_blk, **kw)
                 pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len, n_blk, **kw)
                 err = int((stats - pstats).abs().max())
                 if want_mask:
                     err = max(err, int((mask != pmask).any()))
                 name = "scan_bytes mask" if want_mask else "scan_bytes"
                 max_err[name] = max(max_err[name], err)
+                note_tail(max_err, stats, totals)
                 k_ms = cuda_ms(lambda: bytescan.scan_blocks_bytes(st.u8, st.true_len, n_blk, **kw),
                                10)
                 p_ms = cuda_ms(lambda: bytescan.block_stats_bytes(st.u8, st.true_len, n_blk, **kw),
@@ -1755,8 +1873,8 @@ def main() -> int:
                 say(f"timing 1 GiB corpus: byte scan m={m} {'mask' if want_mask else 'count'} "
                     f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                     f"{int(stats[:, 0].sum())} matches, error {err} [{card}]")
-                del stats, mask, pstats, pmask
-        check(max_err["scan_bytes"] == 0 and max_err["scan_bytes mask"] == 0,
+                del stats, mask, pstats, pmask, totals
+        check(max_err["scan_bytes"] == 0 and max_err["scan_bytes mask"] == 0 and max_err[TAIL] == 0,
               f"byte scan != plain at 1 GiB for long patterns: {max_err}")
         timing.update(vtiming)
 
@@ -1809,9 +1927,10 @@ def main() -> int:
         # walker flushes it: past 64 MiB, so the 1,536-block bucket, about a
         # third of it zero padding past true_len), the shape of the main
         # path's batches, and the largest batch that fits 64 MiB (1,024
-        # blocks); exact against plain, then timed. The scan kernel is
-        # timed alone through its library entry (swar.scan_blocks launches
-        # the fix-up after it), and its output is held to the wrapper's
+        # blocks); exact against plain, then timed. The scan kernel (with
+        # its tail) is timed without the fix-up through its library entry
+        # (swar.scan_blocks launches the fix-up after it), and its output is
+        # held to the wrapper's
         full_b = batch_mod.Batch()
         for path, size in walker._walk(tree, False, None, [0]):
             if size > batch_mod.BATCH_FILE_MAX:
@@ -1832,7 +1951,7 @@ def main() -> int:
             st = dispatch.stage(b.buffer(), dev)
             check(st.n_blocks == want_blocks, f"{label}: bucket of {st.n_blocks} blocks")
             kw = dict(pattern=b"the", want_mask=True, mask_kind="first_line")
-            stats, mask = first_line_vs_plain(st, pattern=b"the")
+            stats, mask, totals = first_line_vs_plain(st, pattern=b"the")
             check(max_err["scan_blocks first_line"] == 0 and max_err["first_line_fixup"] == 0,
                   f"first_line kernel != plain at the {label} shape: {max_err}")
             blockwise = mask.clone()
@@ -1841,15 +1960,19 @@ def main() -> int:
             work = blockwise.clone()
             s_stats = torch.empty_like(stats)
             s_mask = torch.empty_like(mask)
+            s_totals = torch.empty_like(totals)
+            scratch = swar.tail_scratch(dev, stream)
 
             def scan_only():
                 err = lib.krep_scan_blocks(
                     st.u8.data_ptr(), st.n_blocks, b"the", 3, 0, 0, int(st.true_len), 0,
-                    swar.NO_LIMIT, 1, s_mask.data_ptr(), s_stats.data_ptr(), stream)
+                    swar.NO_LIMIT, 1, s_mask.data_ptr(), s_stats.data_ptr(), s_totals.data_ptr(),
+                    scratch.data_ptr(), stream)
                 check(err == 0, f"krep_scan_blocks: CUDA error {err}")
 
             scan_only()
-            check(torch.equal(s_stats, stats) and torch.equal(s_mask, blockwise),
+            check(torch.equal(s_stats, stats) and torch.equal(s_mask, blockwise)
+                  and torch.equal(s_totals, totals),
                   f"{label}: the scan kernel alone differs from the wrapper's scan")
             shape_ms = {
                 "scan_blocks first_line": (
@@ -1880,7 +2003,7 @@ def main() -> int:
             if want_blocks == 1536:  # the main path's shape goes into the kernels line
                 timing.update(shape_ms)
                 bounds.update(shape_bounds)
-            del st, stats, mask, blockwise, work, s_stats, s_mask
+            del st, stats, mask, blockwise, work, s_stats, s_mask, s_totals, totals
 
         # 5m. both shard modes at the main path's shard shape: shard 1 of the
         # 1 GiB corpus on 4 shards (S = 256 MiB: 4,096 blocks + the halo,
@@ -1945,6 +2068,7 @@ def main() -> int:
         "scan_blocks mask": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
         "scan_blocks shard": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
         "combine_blocks": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
+        TAIL: ("scan_common.cuh", "krep_tpu/ops/pallas_swar.py:396"),
         "scan_blocks first_line": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
         "first_line_fixup": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
         "scan_blocks_multi": ("multi_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),

@@ -42,7 +42,10 @@
 // :157-161. The TPU kernel carries the open-line flag and the -w
 // previous-byte flag across its sequential grid in SMEM (scratch[2..3],
 // :131-134, :199-208); here each block writes a line-accounting summary,
-// which combine_blocks (swar_scan.cu) folds in text order.
+// and the scan instances fold them in text order in the launch's last
+// block (scan_common.cuh finish_blocks), writing the totals beside the
+// rows. The variants write rows only; the tool folds them with
+// swar_scan.cu's combine_blocks.
 
 #include "scan_common.cuh"
 
@@ -57,7 +60,8 @@ enum Variant { kScan = 0, kPassthrough = 1, kComparesOnly = 2, kLinesOnly = 3, k
 template <int kLen, bool kWord, int kMask, bool kLines>
 __global__ void __launch_bounds__(kThreads)
 byte_scan_kernel(const uint8_t* __restrict__ text, const uint8_t* __restrict__ pattern, int m,
-                 int icase, int true_len, uint8_t* __restrict__ mask, int* __restrict__ stats) {
+                 int icase, int true_len, uint8_t* __restrict__ mask, int* __restrict__ stats,
+                 int* __restrict__ totals, int* scratch) {
   __shared__ WordScanShared<kBytePatWords> sh;
   // the pattern's words (the filter's two for a short one), zero past m
   const int nw = kLen == kLenLong ? (m + 3) / 4 : 2;
@@ -70,6 +74,7 @@ byte_scan_kernel(const uint8_t* __restrict__ text, const uint8_t* __restrict__ p
   __syncthreads();
   word_scan_block<kLen, kWord, kMask, kLines>(
       WordScanArgs{text, m, icase, true_len, 0, kNoLimit, mask, stats}, sh);
+  finish_blocks(stats, totals, scratch, sh.warp_sums);
 }
 
 // passthrough: the body bytes, summed (each block's sum stays below 2^24),
@@ -97,7 +102,8 @@ passthrough_kernel(const uint8_t* __restrict__ text, int* __restrict__ stats) {
   }
 }
 
-using ByteKernel = void (*)(const uint8_t*, const uint8_t*, int, int, int, uint8_t*, int*);
+using ByteKernel = void (*)(const uint8_t*, const uint8_t*, int, int, int, uint8_t*, int*, int*,
+                           int*);
 
 #define KREP_BYTE(L, W) \
   byte_scan_kernel<L, W, kNoMask, true>, byte_scan_kernel<L, W, kStartMask, true>
@@ -121,17 +127,21 @@ const ByteKernel kCountInstances[3] = {
 // and hold 4096 more readable bytes (the staged halo). `pattern` is a device
 // buffer of m (1..4096) bytes, already folded for -i. `variant`: 0 the scan,
 // with `mask` (nullable, 16-byte aligned) receiving one 0/1 byte per text
-// byte at every match start; 1..4 the cost-attribution variants passthrough
-// (word 0 is the block's byte sum, `pattern` may be null), compares_only
-// (word 0 only), lines_only and full, which take no -i, -w or mask. Returns
-// the launch's cudaGetLastError().
+// byte at every match start, and `totals` (nullable) the rows folded in
+// text order by the launch's last block (count, matched lines, trail, lead,
+// has_nl, 0, 0, 0; `scratch` as for krep_scan_blocks); 1..4 the
+// cost-attribution variants passthrough (word 0 is the block's byte sum,
+// `pattern` may be null), compares_only (word 0 only), lines_only and full,
+// which take no -i, -w, mask or totals. Returns the launch's
+// cudaGetLastError().
 extern "C" int krep_byte_scan(const void* text, int nblocks, const void* pattern, int m,
                               int icase, int wword, int true_len, int variant, void* mask,
-                              void* stats, void* stream) {
+                              void* stats, void* totals, void* scratch, void* stream) {
   if (nblocks < 1 || variant < kScan || variant > kFull) return int(cudaErrorInvalidValue);
   if (variant != kPassthrough && (!pattern || m < 1 || m > kMaxBytePattern))
     return int(cudaErrorInvalidValue);
-  if (variant != kScan && (icase || wword || mask)) return int(cudaErrorInvalidValue);
+  if (variant != kScan && (icase || wword || mask || totals)) return int(cudaErrorInvalidValue);
+  if (!tail_ok(nblocks, totals, scratch)) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* tx = static_cast<const uint8_t*>(text);
   int* st = static_cast<int*>(stats);
@@ -144,6 +154,7 @@ extern "C" int krep_byte_scan(const void* text, int nblocks, const void* pattern
       variant == kComparesOnly ? kCountInstances[cls]
                                : kScanInstances[2 * (2 * cls + (wword ? 1 : 0)) + (mask ? 1 : 0)];
   kernel<<<nblocks, kThreads, 0, s>>>(tx, static_cast<const uint8_t*>(pattern), m, icase,
-                                      true_len, static_cast<uint8_t*>(mask), st);
+                                      true_len, static_cast<uint8_t*>(mask), st,
+                                      static_cast<int*>(totals), static_cast<int*>(scratch));
   return int(cudaGetLastError());
 }

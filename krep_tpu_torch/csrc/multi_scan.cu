@@ -57,6 +57,10 @@
 //     then the 256 summaries fold in order as before;
 //   * the mask instance expands the bitmap into 16-byte stores, consecutive
 //     threads at consecutive addresses (store_mask_bits);
+//   * the launch's block summaries fold in text order inside the launch,
+//     by the last blocks to finish (scan_common.cuh finish_blocks), which
+//     write the totals beside the rows; a block past the shard limit still
+//     takes its part;
 //   * -i, -w, the mask and the shard mode are template arguments (16
 //     instances, picked by krep_scan_blocks_multi): the hot loops test none
 //     of them at run time. The shard mode (kShard, for `scan_shard_multi`
@@ -269,7 +273,8 @@ template <bool kFold, bool kWord, bool kMask, bool kShard>
 __global__ void __launch_bounds__(kThreads, 2)
 scan_blocks_multi_kernel(const uint8_t* __restrict__ text, const MultiTables* __restrict__ tables,
                          int true_len, int prev_word, int start_limit,
-                         uint8_t* __restrict__ mask, int* __restrict__ stats) {
+                         uint8_t* __restrict__ mask, int* __restrict__ stats,
+                         int* __restrict__ totals, int* scratch) {
   extern __shared__ uint4 smem4[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
   uint32_t* hits = reinterpret_cast<uint32_t*>(smem + kTextBytes);
@@ -288,7 +293,8 @@ scan_blocks_multi_kernel(const uint8_t* __restrict__ text, const MultiTables* __
       for (int i = 0; i < kBlockBytes / 16 / kThreads; ++i)
         reinterpret_cast<uint4*>(mask + size_t(base))[i * kThreads + t] = make_uint4(0, 0, 0, 0);
     }
-    if (t < kStatWords) stats[blockIdx.x * kStatWords + t] = 0;
+    if (t == 0) write_row(stats + blockIdx.x * kStatWords, Summary{0, 0, 0, 0, 0}, 0);
+    finish_blocks<false>(stats, totals, scratch, warp_sums);  // its ticket too
     return;
   }
 
@@ -367,15 +373,18 @@ scan_blocks_multi_kernel(const uint8_t* __restrict__ text, const MultiTables* __
   }
   s.trail = state;
 
-  // 3. The union mask from the bitmap, then the block's summary.
+  // 3. The union mask from the bitmap, then the block's summary and the
+  //    launch's fold in its last block.
   if (kMask) {
     __syncthreads();
     store_mask_bits(hits, mask + size_t(base));
   }
   store_block_summary(s, warp_sums, stats);
+  finish_blocks<false>(stats, totals, scratch, warp_sums);
 }
 
-using Kernel = void (*)(const uint8_t*, const MultiTables*, int, int, int, uint8_t*, int*);
+using Kernel = void (*)(const uint8_t*, const MultiTables*, int, int, int, uint8_t*, int*, int*,
+                       int*);
 
 #define KREP_MULTI(i) scan_blocks_multi_kernel<((i) & 1) != 0, ((i) & 2) != 0, ((i) & 4) != 0, \
                                                ((i) & 8) != 0>
@@ -390,17 +399,20 @@ const Kernel kInstances[16] = {
 }  // namespace
 
 // Per-block summaries of nblocks * 64 KiB of staged text for the tables at
-// `tables` (a device MultiTables). `text` must hold nblocks * 65536 + 64
-// readable bytes and be 16-byte aligned; `mask` (nullable, 16-byte aligned)
-// receives one 0/1 union byte per text byte; `stats` receives 8 int32 per
-// block: matches, first, trail, lead, has_nl, 0, 0, 0. `prev_word` is the -w
-// flag of the byte before the text; with `shard`, starts and the newlines
-// that count lie below `start_limit`. Returns the launch's
-// cudaGetLastError().
+// `tables` (a device MultiTables), and their fold. `text` must hold
+// nblocks * 65536 + 64 readable bytes and be 16-byte aligned; `mask`
+// (nullable, 16-byte aligned) receives one 0/1 union byte per text byte;
+// `stats` receives 8 int32 per block: matches, first, trail, lead, has_nl,
+// 0, 0, 0; `totals` (nullable) the rows folded in text order by the
+// launch's last block (matches, matched lines, trail, lead, has_nl, 0, 0,
+// 0; `scratch` as for krep_scan_blocks). `prev_word` is the -w flag of the
+// byte before the text; with `shard`, starts and the newlines that count
+// lie below `start_limit`. Returns the launch's cudaGetLastError().
 extern "C" int krep_scan_blocks_multi(const void* text, int nblocks, const void* tables, int icase,
                                       int wword, int true_len, int prev_word, int start_limit,
-                                      int shard, void* mask, void* stats, void* stream) {
-  if (nblocks < 1) return int(cudaErrorInvalidValue);
+                                      int shard, void* mask, void* stats, void* totals,
+                                      void* scratch, void* stream) {
+  if (nblocks < 1 || !tail_ok(nblocks, totals, scratch)) return int(cudaErrorInvalidValue);
   const Kernel kernel =
       kInstances[(icase ? 1 : 0) | (wword ? 2 : 0) | (mask ? 4 : 0) | (shard ? 8 : 0)];
   cudaError_t err =
@@ -408,6 +420,7 @@ extern "C" int krep_scan_blocks_multi(const void* text, int nblocks, const void*
   if (err != cudaSuccess) return int(err);
   kernel<<<nblocks, kThreads, kMultiSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(text), static_cast<const MultiTables*>(tables), true_len,
-      prev_word, start_limit, static_cast<uint8_t*>(mask), static_cast<int*>(stats));
+      prev_word, start_limit, static_cast<uint8_t*>(mask), static_cast<int*>(stats),
+      static_cast<int*>(totals), static_cast<int*>(scratch));
   return int(cudaGetLastError());
 }

@@ -2,9 +2,31 @@
 // lines_scan.cu, hamming_scan.cu, byte_scan.cu): the 64 KiB block geometry, the
 // line-accounting summary and its ordered fold (byte by byte, or 32
 // positions at a time from bit words), the ASCII fold, the word-byte test,
-// the coalesced store of a start bitmap as a 0/1 byte mask, and the word
-// scan of one pattern that swar_scan.cu and byte_scan.cu both run
+// the coalesced store of a start bitmap as a 0/1 byte mask, the fold of a
+// launch's block summaries by its own last blocks (finish_blocks), the line
+// fold of a warp's stride from its hit and newline bit words
+// (fold_lines16, which the word scan and the lines kernel share), and the
+// word scan of one pattern that swar_scan.cu and byte_scan.cu both run
 // (word_scan_block, at the end).
+//
+// finish_blocks replaces a second launch (the standalone combine_blocks of
+// swar_scan.cu, one block that folded every row: 0.045 ms at 16,384 rows
+// on an H100, mostly its launch and one SM's dependent loads). Thread 0 of
+// each block writes the block's row and draws a ticket from its group's
+// counter (64 blocks a group) with an atomic add that releases the row and
+// acquires the rows of the adders before it; the block that draws a
+// group's last ticket folds the group's rows, read from L2 (__ldcg: the
+// rows come from other SMs, so no L1 line of them can be stale), into a
+// group row and draws a ticket from the launch's counter the same way; the block that draws
+// the last of those folds the group rows into the totals. The counters and
+// the group rows are one int32 scratch per (device, stream), zeroed once by
+// the wrapper (ops/swar.py) and left at zero by the blocks that complete
+// them, so the next launch finds them at zero: launches on one stream run
+// one after another, launches on two streams use two scratches, and a
+// fault inside a launch leaves a sticky context error, so no later launch
+// can read a counter that was left half counted. A block with nothing to
+// scan (past start_limit) still writes its row and draws its ticket, or
+// its group would never fold.
 
 #pragma once
 
@@ -16,7 +38,6 @@ namespace {
 constexpr int kBlockBytes = 65536;                // staged bytes per CUDA block
 constexpr int kThreads = 256;
 constexpr int kSpan = kBlockBytes / kThreads;     // contiguous bytes per thread
-constexpr int kRow = kSpan + 4;                   // padded shared-memory row
 constexpr int kTail = 64;                         // m-1 <= 63 match bytes + the -w after-byte
 constexpr int kMaxPattern = 64;
 constexpr int kStatWords = 8;
@@ -80,9 +101,6 @@ __device__ __forceinline__ int is_word(unsigned c) {
   return (c - '0' < 10u) | ((c | 0x20u) - 'a' < 26u) | (c == '_');
 }
 
-// Shared-memory address of block-local byte offset o (o < kBlockBytes + kTail).
-__device__ __forceinline__ int sidx(int o) { return (o >> 8) * kRow + (o & (kSpan - 1)); }
-
 // One byte of a thread's in-order walk: `hit` matches start here (the
 // union decides the line state; `n` is what `count` adds), `nl` says the
 // byte is a newline. `state`: the open line already has a match.
@@ -101,6 +119,12 @@ __device__ __forceinline__ void walk_step(Summary& s, int& state, int n, int nl)
 __device__ __forceinline__ uint32_t newline_bits4(uint32_t w) {
   const uint32_t e = __vcmpeq4(w, 0x0A0A0A0Au) & 0x01010101u;
   return (e * 0x01020408u) >> 24;  // byte i's flag to bit 24 + i; no carries
+}
+
+// Newline flags of a lane's 16 bytes, as bits 0..15.
+__device__ __forceinline__ uint32_t newline_bits16(uint4 v) {
+  return newline_bits4(v.x) | newline_bits4(v.y) << 4 | newline_bits4(v.z) << 8 |
+         newline_bits4(v.w) << 12;
 }
 
 // walk_step over 32 positions at once, from bit words (bit j: position j):
@@ -141,6 +165,18 @@ __device__ __forceinline__ void store_mask_bits(const uint32_t* bits, uint8_t* o
   }
 }
 
+// Writes a summary as a row of 8 int32: count, first, trail, lead, has_nl,
+// then `word5`, 0, 0.
+__device__ __forceinline__ void write_row(int* out, const Summary& b, int word5) {
+  out[0] = b.count;
+  out[1] = b.first;
+  out[2] = b.trail;
+  out[3] = b.lead;
+  out[4] = b.has_nl;
+  out[5] = word5;
+  out[6] = out[7] = 0;
+}
+
 // Folds the block's thread summaries in thread order (the threads walk
 // consecutive spans) and writes the block's row of 8 int32 stats.
 __device__ __forceinline__ void store_block_summary(Summary s, Summary* warp_sums, int* stats) {
@@ -151,16 +187,131 @@ __device__ __forceinline__ void store_block_summary(Summary s, Summary* warp_sum
   if (t == 0) {
     Summary b = warp_sums[0];
     for (int w = 1; w < kThreads / 32; ++w) b = combine(b, warp_sums[w]);
-    int* out = stats + blockIdx.x * kStatWords;
-    out[0] = b.count;
-    out[1] = b.first;
-    out[2] = b.trail;
-    out[3] = b.lead;
-    out[4] = b.has_nl;
-    out[5] = out[6] = out[7] = 0;
+    write_row(stats + blockIdx.x * kStatWords, b, 0);
   }
 }
 
+// The scan tail's scratch, one int32 array per (device, stream) that the
+// wrapper zeroes once (ops/swar.py tail_scratch): each group's folded row
+// (kStatWords words, 16-byte aligned for load_row), then each group's count
+// of finished blocks, then the count of groups whose fold is done. Groups
+// of kGroupBlocks blocks; a launch has at most 2 GiB of 64 KiB blocks.
+constexpr int kGroupBlocks = 64;
+constexpr int kMaxTailGroups = (1u << 31) / kBlockBytes / kGroupBlocks;  // 512
+constexpr int kTailCounters = kMaxTailGroups * kStatWords;  // the first counter's word
+constexpr int kTailWords = kTailCounters + kMaxTailGroups + 1;
+
+// A launch's scan-tail arguments: no totals, or totals and a scratch for
+// at most 2 GiB of blocks.
+inline bool tail_ok(int nblocks, const void* totals, const void* scratch) {
+  return !totals || (scratch && nblocks <= kMaxTailGroups * kGroupBlocks);
+}
+
+// Words 0..4 of a row written by another block, from L2 (__ldcg: no L1
+// line of it can be stale).
+__device__ __forceinline__ Summary load_row(const int* r) {
+  const int4 a = __ldcg(reinterpret_cast<const int4*>(r));
+  return Summary{a.x, a.y, a.z, a.w, __ldcg(r + 4)};
+}
+
+// Folds n <= 2 * kThreads rows of kStatWords ints in text order, in
+// passes of kThreads rows: thread t row r0 + t, then warp_fold, then the
+// warps' sums in order onto the passes before. The result is thread 0's.
+// Every thread calls it. One row a thread: with two it lifted the word
+// scan's registers by up to 12 (one block fewer per SM, 5 % on the count,
+// PERF.md).
+__device__ __forceinline__ Summary fold_rows_inline(const int* rows, int n,
+                                                    Summary* warp_sums) {
+  const int t = threadIdx.x;
+  Summary b = {0, 0, 0, 0, 0};  // the empty summary is neutral on both sides
+  for (int r0 = 0; r0 < n; r0 += kThreads) {
+    Summary s = {0, 0, 0, 0, 0};
+    if (r0 + t < n) s = load_row(rows + (r0 + t) * kStatWords);
+    s = warp_fold(s);
+    __syncthreads();  // the previous pass's (or the caller's) warp sums are read
+    if ((t & 31) == 0) warp_sums[t >> 5] = s;
+    __syncthreads();
+#pragma unroll 1
+    for (int w = 0; w < kThreads / 32; ++w) b = combine(b, warp_sums[w]);
+  }
+  return b;
+}
+
+// fold_rows_inline behind a call. Which of the two a kernel takes was
+// measured (PERF.md): the word scans run 2-6 % slower with the fold
+// inlined (at one call site or two), though a call costs a kernel its
+// uniform datapath (its ballots go to per-thread registers behind
+// divergence checks, BRA.DIV); the K-pattern scan's shard instances run
+// 5-6 % slower with the call.
+__device__ __noinline__ Summary fold_rows_call(const int* rows, int n, Summary* warp_sums) {
+  return fold_rows_inline(rows, n, warp_sums);
+}
+
+template <bool kCall>
+__device__ __forceinline__ Summary fold_rows(const int* rows, int n, Summary* warp_sums) {
+  if constexpr (kCall) return fold_rows_call(rows, n, warp_sums);
+  else return fold_rows_inline(rows, n, warp_sums);
+}
+
+// Adds 1 to *counter with release and acquire semantics at device scope:
+// this thread's earlier writes are visible to the device before the add,
+// and what the earlier adders wrote before theirs is visible after it (to
+// the block, after a barrier). Returns the count before the add.
+__device__ __forceinline__ int ticket(int* counter) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(old)
+               : "l"(counter)
+               : "memory");
+  return old;
+}
+
+// The end of every summary-writing launch: every thread of every block
+// calls it once the block's thread 0 has written the block's row (stats +
+// blockIdx.x * kStatWords). Two levels of tickets: the block that finishes
+// its group of kGroupBlocks blocks last folds the group's rows into the
+// group's row in `scratch`; the block that finishes the last group folds
+// the group rows into the 8 totals [count, matched lines, trail, lead,
+// has_nl, 0, 0, 0]. Each finisher resets the counter it completed (the
+// note at the top has the argument). The thread that wrote a row draws
+// its ticket with release semantics (ticket), and no thread fences: a
+// __threadfence in every thread cost the K-pattern scan (two blocks an
+// SM) 1.4 % at 1 GiB, one in thread 0 still 0.8 %. One level, the last
+// block folding every row alone, each thread a run of rows, took 0.021 ms
+// at 16,384 rows and 0.038 ms at 24,576 on an H100 (PERF.md): one SM read
+// every row from L2, 32 lanes at 32 rows' distance a load. totals ==
+// nullptr: no fold (the cost-attribution variants of byte_scan.cu).
+// `warp_sums`: kThreads / 32 summaries of shared memory that the block no
+// longer reads. kCall: fold through a call (fold_rows_call: the word scans
+// and the lines kernel), else inline (the K-pattern scan).
+template <bool kCall = true>
+__device__ __forceinline__ void finish_blocks(const int* stats, int* totals, int* scratch,
+                                              Summary* warp_sums) {
+  __shared__ int last;
+  if (!totals) return;
+  const int t = threadIdx.x, n = gridDim.x;
+  const int g = blockIdx.x / kGroupBlocks, g0 = g * kGroupBlocks;
+  const int ngroups = (n + kGroupBlocks - 1) / kGroupBlocks;
+  int* group_rows = scratch;
+  int* group_count = scratch + kTailCounters;
+  int* groups_done = group_count + kMaxTailGroups;
+  if (t == 0) last = ticket(group_count + g) == min(kGroupBlocks, n - g0) - 1;  // the row's writer
+  __syncthreads();
+  if (!last) return;
+  Summary s = fold_rows<kCall>(stats + g0 * kStatWords, min(kGroupBlocks, n - g0), warp_sums);
+  if (t == 0) {
+    write_row(group_rows + g * kStatWords, s, 0);
+    group_count[g] = 0;
+    last = ticket(groups_done) == ngroups - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  s = fold_rows<kCall>(group_rows, ngroups, warp_sums);
+  if (t == 0) {
+    write_row(totals, s, 0);
+    *groups_done = 0;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // The word scan of one pattern: swar_scan.cu's K=1 scan (with its first-line
@@ -229,6 +380,69 @@ __device__ __forceinline__ uint32_t low_bits16(int r) {
 __device__ __forceinline__ uint4 spread16(uint32_t f) {
   return make_uint4(spread4(f & 15), spread4((f >> 4) & 15), spread4((f >> 8) & 15),
                     spread4((f >> 12) & 15));
+}
+
+// A warp's line state over its walk: its summary (count left to the
+// caller, trail set at the end from `state`), the open line's flag, whether
+// the warp has met no match and no newline yet, and (first_line) the block
+// offset of its lead flag, -1 if none.
+struct WarpLines {
+  Summary s = {0, 0, 0, 0, 0};
+  uint32_t state = 0;
+  bool lead_open = true;
+  int lead_off = -1;
+};
+
+// The line fold of one stride (step 2 of word_scan_block, and the lines
+// kernel's whole work): each lane's 16 start flags `hits` and the newlines
+// that count `nl`, bit j for position j of the lane's 16 bytes at block
+// offset so + 16 * lane. The state entering each lane comes from the
+// warp's ballots of the lanes' (trail, has newline), then fold_bits's carry
+// trick on 16 bits. Returns the lane's first-in-line flags (exact as if the
+// warp's span began on a closed line). kLeadOff: record the lead's offset.
+template <bool kLeadOff>
+__device__ __forceinline__ uint32_t fold_lines16(WarpLines& w, uint32_t hits, uint32_t nl, int so) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t gen = hits & ~nl, prop = ~nl & 0xFFFFu;
+  const uint32_t s0 = gen + prop;  // entering on a closed line; bit 16: the trail
+  const uint32_t T = __ballot_sync(kAll, s0 >> 16), N = __ballot_sync(kAll, nl != 0);
+  const uint32_t D = (T | N) & ((1u << lane) - 1);  // earlier lanes that decide the state
+  const uint32_t enter = D ? (T >> (31 - __clz(D))) & 1 : w.state;
+  const uint32_t open = (s0 + enter) ^ gen ^ prop;  // bit j: the line open at j has a match
+  const uint32_t first = hits & ~open;
+  w.s.first += __popc(first);
+  // the warp's lead: its first match, if at or before its first newline
+  if (w.lead_open) {  // warp-uniform
+    const uint32_t upto = nl ? nl ^ (nl - 1) : 0xFFFFu;  // through the lane's first newline
+    const uint32_t L = __ballot_sync(kAll, (hits & upto) != 0) & (N ? N ^ (N - 1) : kAll);
+    if (L) {
+      w.s.lead = 1;
+      if (kLeadOff) {
+        const int ll = __ffs(L) - 1;
+        w.lead_off = so + 16 * ll + __ffs(__shfl_sync(kAll, hits, ll)) - 1;
+      }
+    }
+    w.lead_open = !L && !N;
+  }
+  const uint32_t DA = T | N;
+  if (DA) w.state = (T >> (31 - __clz(DA))) & 1;
+  w.s.has_nl |= N != 0;
+  return first;
+}
+
+// The warps' line summaries in order: count and first summed over the
+// lanes, lane 0's summary into warp_sums; then the block's fold, by thread
+// 0, of warp_sums (after a barrier).
+__device__ __forceinline__ void put_warp_summary(Summary s, Summary* warp_sums) {
+  s.count = __reduce_add_sync(kAll, s.count);
+  s.first = __reduce_add_sync(kAll, s.first);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = s;
+}
+
+__device__ __forceinline__ Summary fold_warps(const Summary* warp_sums) {
+  Summary b = warp_sums[0];
+  for (int w = 1; w < kScanWarps; ++w) b = combine(b, warp_sums[w]);
+  return b;
 }
 
 template <int kPatWords>
@@ -328,7 +542,7 @@ __device__ __forceinline__ void word_scan_block(const WordScanArgs& a,
       uint4* dst = reinterpret_cast<uint4*>(a.mask + size_t(base));
       for (int i = t; i < kBlockBytes / 16; i += kThreads) dst[i] = make_uint4(0, 0, 0, 0);
     }
-    if (t < kStatWords) out[t] = kMask == kFirstLineMask && t == 5 ? -1 : 0;
+    if (t == 0) write_row(out, Summary{0, 0, 0, 0, 0}, kMask == kFirstLineMask ? -1 : 0);
     return;
   }
   const int m = a.m;
@@ -350,10 +564,7 @@ __device__ __forceinline__ void word_scan_block(const WordScanArgs& a,
     nxt = fold16(nxt);
   }
   uint32_t wb_cur = kWord && kLen != kLenLong ? word_bits16(cur) : 0u;  // -w: this lane's flags
-  Summary s = {0, 0, 0, 0, 0};
-  uint32_t state = 0;     // the open line already has a match
-  bool lead_open = true;  // no match and no newline yet in the warp's span
-  int lead_off = -1;
+  WarpLines lines;
 #pragma unroll 1
   for (int k = 0; k < kStrides; ++k) {
     const int so = warp_off + k * kStride;  // block offset of the stride
@@ -398,38 +609,13 @@ __device__ __forceinline__ void word_scan_block(const WordScanArgs& a,
       hits = verify_long<kWord>(hits, lo, so, block, base == 0, sh.pat, m, icase, a.prev_word,
                                 sh.queue[warp], sh.verified[warp]);
 
-    // 2. Lines: the state entering each lane from the warp's ballots of the
-    //    lanes' (trail, has newline), then fold_bits's carry trick on 16 bits.
+    // 2. Lines: fold_lines16 on the hit and newline words.
     uint32_t flags = hits;
-    s.count += __popc(hits);
+    lines.s.count += __popc(hits);
     if (kLines) {
-      const uint32_t nl = (newline_bits4(cur.x) | newline_bits4(cur.y) << 4 |
-                           newline_bits4(cur.z) << 8 | newline_bits4(cur.w) << 12) & nl_own;
-      const uint32_t gen = hits & ~nl, prop = ~nl & 0xFFFFu;
-      const uint32_t s0 = gen + prop;  // entering on a closed line; bit 16: the trail
-      const uint32_t T = __ballot_sync(kAll, s0 >> 16), N = __ballot_sync(kAll, nl != 0);
-      const uint32_t D = (T | N) & ((1u << lane) - 1);  // earlier lanes that decide the state
-      const uint32_t enter = D ? (T >> (31 - __clz(D))) & 1 : state;
-      const uint32_t open = (s0 + enter) ^ gen ^ prop;  // bit j: the line open at j has a match
-      const uint32_t first = hits & ~open;
-      s.first += __popc(first);
+      const uint32_t first =
+          fold_lines16<kMask == kFirstLineMask>(lines, hits, newline_bits16(cur) & nl_own, so);
       if (kMask == kFirstLineMask) flags = first;
-      // the warp's lead: its first match, if at or before its first newline
-      if (lead_open) {  // warp-uniform
-        const uint32_t upto = nl ? nl ^ (nl - 1) : 0xFFFFu;  // through the lane's first newline
-        const uint32_t L = __ballot_sync(kAll, (hits & upto) != 0) & (N ? N ^ (N - 1) : kAll);
-        if (L) {
-          s.lead = 1;
-          if (kMask == kFirstLineMask) {
-            const int ll = __ffs(L) - 1;
-            lead_off = so + 16 * ll + __ffs(__shfl_sync(kAll, hits, ll)) - 1;
-          }
-        }
-        lead_open = !L && !N;
-      }
-      const uint32_t DA = T | N;
-      if (DA) state = (T >> (31 - __clz(DA))) & 1;
-      s.has_nl |= N != 0;
     }
     if (kMask != kNoMask)
       *reinterpret_cast<uint4*>(a.mask + size_t(base) + lo) = spread16(flags);
@@ -437,29 +623,23 @@ __device__ __forceinline__ void word_scan_block(const WordScanArgs& a,
     cur = nxt;
     nxt = icase ? fold16(ahead) : ahead;
   }
-  s.trail = state;
+  lines.s.trail = lines.state;
 
   // 3. The warps' summaries in order; first_line clears a warp's lead flag
   //    where an earlier warp of the block leaves its line open with a match.
-  s.count = __reduce_add_sync(kAll, s.count);
-  s.first = __reduce_add_sync(kAll, s.first);
-  if (lane == 0) {
-    sh.warp_sums[warp] = s;
-    sh.lead_off[warp] = lead_off;
-  }
+  put_warp_summary(lines.s, sh.warp_sums);
+  if (lane == 0) sh.lead_off[warp] = lines.lead_off;
   __syncthreads();
-  if (kMask == kFirstLineMask && lane == 0 && lead_off >= 0) {
+  if (kMask == kFirstLineMask && lane == 0 && lines.lead_off >= 0) {
     for (int u = warp - 1; u >= 0; --u) {
       if (sh.warp_sums[u].trail) {
-        a.mask[size_t(base) + lead_off] = 0;
+        a.mask[size_t(base) + lines.lead_off] = 0;
         break;
       }
       if (sh.warp_sums[u].has_nl) break;
     }
   }
   if (t == 0) {
-    Summary b = sh.warp_sums[0];
-    for (int w = 1; w < kScanWarps; ++w) b = combine(b, sh.warp_sums[w]);
     int lead = -1;  // the block's lead flag: the lead of its first warp with a match or newline
     for (int w = 0; kMask == kFirstLineMask && w < kScanWarps; ++w) {
       if (sh.warp_sums[w].lead) {
@@ -468,13 +648,7 @@ __device__ __forceinline__ void word_scan_block(const WordScanArgs& a,
       }
       if (sh.warp_sums[w].has_nl) break;
     }
-    out[0] = b.count;
-    out[1] = b.first;
-    out[2] = b.trail;
-    out[3] = b.lead;
-    out[4] = b.has_nl;
-    out[5] = kMask == kFirstLineMask ? lead : 0;
-    out[6] = out[7] = 0;
+    write_row(out, fold_warps(sh.warp_sums), kMask == kFirstLineMask ? lead : 0);
   }
 }
 

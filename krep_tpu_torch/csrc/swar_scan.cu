@@ -53,11 +53,20 @@
 //
 // The TPU kernel carries the open-line flag, the -w previous-byte flag and
 // the shard stats across its sequential grid in scratch memory. CUDA
-// blocks run in no order, so each block emits a summary that
-// combine_blocks_kernel folds in text order with the algebra of
-// LineCountCombiner.push (krep_tpu/parallel/mesh.py:135-143); the -w flag
-// is a direct read of the previous byte. The folded summary is the
+// blocks run in no order, so each block emits a summary, and the launch's
+// last block folds them in text order with the algebra of
+// LineCountCombiner.push (krep_tpu/parallel/mesh.py:135-143): the scan
+// tail of scan_common.cuh (finish_blocks, whose note has the counter's
+// argument), which writes the totals beside the rows. A second launch
+// used to do that fold (combine_blocks_kernel below, one block of 1,024
+// threads: 0.045 ms at 16,384 rows, against a 0.0002 ms bound); it stays
+// for the summaries of kernels without the tail (the Hamming kernel's line
+// mode, the byte scan's cost-attribution variants). The -w flag is a
+// direct read of the previous byte. The folded summary is the
 // matched-line count and, unchanged, the shard stats of the slab loop.
+// In first_line mode the tail folds the rows as the scan wrote them: the
+// fix-up after it edits only the mask, never a row, so the totals do not
+// wait for it.
 //
 // The -c dedup mask (mask kind first_line, the batched `-r -c` path of
 // krep_tpu/io/batch.py) is made exact in three steps, none relying on the
@@ -89,7 +98,7 @@ template <int kLen, bool kWord, int kMask>
 __global__ void __launch_bounds__(kThreads)
 scan_blocks_kernel(const uint8_t* __restrict__ text, Pattern pat, int m, int icase, int true_len,
                    int prev_word, int start_limit, uint8_t* __restrict__ mask,
-                   int* __restrict__ stats) {
+                   int* __restrict__ stats, int* __restrict__ totals, int* scratch) {
   __shared__ WordScanShared<kPatWords> sh;
   if (threadIdx.x == 0) {  // constant indices: the argument stays in the constant bank
 #pragma unroll
@@ -98,6 +107,7 @@ scan_blocks_kernel(const uint8_t* __restrict__ text, Pattern pat, int m, int ica
   __syncthreads();
   word_scan_block<kLen, kWord, kMask, true>(
       WordScanArgs{text, m, icase, true_len, prev_word, start_limit, mask, stats}, sh);
+  finish_blocks(stats, totals, scratch, sh.warp_sums);
 }
 
 // One thread per block: clears the block's lead flag (stats word 5) when
@@ -149,7 +159,8 @@ combine_blocks_kernel(const int* __restrict__ stats, int nblocks, int* __restric
 }
 
 
-using ScanKernel = void (*)(const uint8_t*, Pattern, int, int, int, int, int, uint8_t*, int*);
+using ScanKernel = void (*)(const uint8_t*, Pattern, int, int, int, int, int, uint8_t*, int*, int*,
+                           int*);
 
 #define KREP_SCAN(L, W)                                                             \
   scan_blocks_kernel<L, W, kNoMask>, scan_blocks_kernel<L, W, kStartMask>,          \
@@ -163,22 +174,27 @@ const ScanKernel kScanInstances[18] = {
 
 }  // namespace
 
-// Per-block summaries of nblocks * 64 KiB of staged text. `text` must hold
-// nblocks * 65536 + 64 readable bytes (the staged 4 KiB zero halo covers the
-// tail) and be 16-byte aligned; `pattern` holds m bytes, already folded for
-// -i; `mask` (nullable, 16-byte aligned) receives one 0/1 byte per text
-// byte, every match start, or with `first_line` the first-in-line flags of
-// each block as if it began on a closed line (krep_first_line_fixup
-// finishes them); `stats` receives 8 int32 per block: count, first, trail,
-// lead, has_nl, then with `first_line` the text offset of the block's lead
-// flag (-1 if none), else 0, then 0, 0. Returns the launch's
-// cudaGetLastError().
+// Per-block summaries of nblocks * 64 KiB of staged text, and their fold.
+// `text` must hold nblocks * 65536 + 64 readable bytes (the staged 4 KiB
+// zero halo covers the tail) and be 16-byte aligned; `pattern` holds m
+// bytes, already folded for -i; `mask` (nullable, 16-byte aligned) receives
+// one 0/1 byte per text byte, every match start, or with `first_line` the
+// first-in-line flags of each block as if it began on a closed line
+// (krep_first_line_fixup finishes them); `stats` receives 8 int32 per
+// block: count, first, trail, lead, has_nl, then with `first_line` the text
+// offset of the block's lead flag (-1 if none), else 0, then 0, 0.
+// `totals` (nullable) receives the rows folded in text order, 8 int32:
+// count, matched lines, trail, lead, has_nl, 0, 0, 0, by the launch's last
+// block; `scratch` is krep_tail_words() int32 of device memory, zero,
+// that no other launch uses at the same time (scan_common.cuh
+// finish_blocks). Returns the launch's cudaGetLastError().
 extern "C" int krep_scan_blocks(const void* text, int nblocks, const unsigned char* pattern,
                                 int m, int icase, int wword, int true_len, int prev_word,
                                 int start_limit, int first_line, void* mask, void* stats,
-                                void* stream) {
+                                void* totals, void* scratch, void* stream) {
   if (m < 1 || m > kMaxPattern || nblocks < 1) return int(cudaErrorInvalidValue);
   if (first_line && !mask) return int(cudaErrorInvalidValue);
+  if (!tail_ok(nblocks, totals, scratch)) return int(cudaErrorInvalidValue);
   Pattern p;
   memset(p.w, 0, sizeof(p.w));
   memcpy(p.w, pattern, m);  // little-endian host and device
@@ -186,9 +202,13 @@ extern "C" int krep_scan_blocks(const void* text, int nblocks, const unsigned ch
   const ScanKernel kernel = kScanInstances[3 * (2 * len_class(m) + (wword ? 1 : 0)) + kind];
   kernel<<<nblocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(text), p, m, icase, true_len, prev_word, start_limit,
-      static_cast<uint8_t*>(mask), static_cast<int*>(stats));
+      static_cast<uint8_t*>(mask), static_cast<int*>(stats), static_cast<int*>(totals),
+      static_cast<int*>(scratch));
   return int(cudaGetLastError());
 }
+
+// The int32 words of the scan tail's scratch (scan_common.cuh kTailWords).
+extern "C" int krep_tail_words() { return kTailWords; }
 
 // Finishes a first_line mask of krep_scan_blocks: clears the lead flag of
 // every block whose entering line already has a match, from the nblocks
@@ -202,7 +222,8 @@ extern "C" int krep_first_line_fixup(const void* stats, int nblocks, void* mask,
 }
 
 // Folds nblocks block summaries in text order into 8 int32 at `out`:
-// count, matched lines, trail, lead, has_nl, 0, 0, 0.
+// count, matched lines, trail, lead, has_nl, 0, 0, 0. For the summaries of
+// kernels without the scan tail.
 extern "C" int krep_combine_blocks(const void* stats, int nblocks, void* out, void* stream) {
   if (nblocks < 1) return int(cudaErrorInvalidValue);
   combine_blocks_kernel<<<1, kCombineThreads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -111,21 +111,23 @@ def _load(path: Path) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.krep_scan_blocks.restype = i
     lib.krep_scan_blocks.argtypes = [
-        vp, i, ctypes.c_char_p, i, i, i, i, i, i, i, vp, vp, vp,
+        vp, i, ctypes.c_char_p, i, i, i, i, i, i, i, vp, vp, vp, vp, vp,
     ]
+    lib.krep_tail_words.restype = i
+    lib.krep_tail_words.argtypes = []
     lib.krep_first_line_fixup.restype = i
     lib.krep_first_line_fixup.argtypes = [vp, i, vp, vp]
     lib.krep_combine_blocks.restype = i
     lib.krep_combine_blocks.argtypes = [vp, i, vp, vp]
     lib.krep_scan_blocks_multi.restype = i
-    lib.krep_scan_blocks_multi.argtypes = [vp, i, vp, i, i, i, i, i, i, vp, vp, vp]
+    lib.krep_scan_blocks_multi.argtypes = [vp, i, vp, i, i, i, i, i, i, vp, vp, vp, vp, vp]
     lib.krep_lines_blocks.restype = i
-    lib.krep_lines_blocks.argtypes = [vp, vp, i, vp, vp]
+    lib.krep_lines_blocks.argtypes = [vp, vp, i, vp, vp, vp, vp]
     lib.krep_hamming_scan.restype = i
     ll = ctypes.c_longlong
     lib.krep_hamming_scan.argtypes = [
         vp, i, vp, vp, vp, i, i, ctypes.c_char_p, i, ll, i, ll, i, vp, vp, vp,
     ]
     lib.krep_byte_scan.restype = i
-    lib.krep_byte_scan.argtypes = [vp, i, vp, i, i, i, i, i, vp, vp, vp]
+    lib.krep_byte_scan.argtypes = [vp, i, vp, i, i, i, i, i, vp, vp, vp, vp, vp]
     return lib

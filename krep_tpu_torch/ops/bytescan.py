@@ -7,14 +7,16 @@ source carries both, csrc/byte_scan.cu:
 
   scan_blocks_bytes  one CUDA block per 64 KiB of staged text: the match
                      test of one pattern of 1..MAX_PATTERN bytes with -i and
-                     -w, the u8 start mask, and one line-accounting summary
-                     per block (the TPU kernel's sequential carries become
-                     these summaries, which swar.combine_blocks folds);
+                     -w, the u8 start mask, one line-accounting summary per
+                     block (the TPU kernel's sequential carries become these
+                     summaries), and their fold, the totals, from the
+                     launch's last block (swar.TAIL_FOLDS);
   scan_variant       the same kernel cut down to attribute its cost
                      (VARIANTS): "passthrough" sums the body bytes,
                      "compares_only" counts matches, "lines_only" and "full"
                      count matches and matched lines (one body, as in the
-                     TPU tool); no -i, -w or mask.
+                     TPU tool); no -i, -w or mask; rows only, which
+                     run_variant folds with swar.combine_blocks.
 
 On a CUDA tensor each wrapper launches its kernel or raises. On a CPU
 tensor it runs the kernel's plain PyTorch version (block_stats_bytes,
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import lines
 from . import literal, swar
 from .literal import BLOCK_BYTES, STAT_WORDS
 
@@ -77,39 +80,50 @@ def scan_blocks_bytes(
 ):
     """The byte scan of the first n_blocks * 64 KiB bytes of staged `text`
     (flat uint8 holding HALO_BYTES more: the staged halo): (n_blocks, 8)
-    int32 summaries, as block_stats_bytes, and the u8 0/1 start mask (None
-    unless want_mask)."""
+    int32 summaries, as block_stats_bytes, the u8 0/1 start mask (None
+    unless want_mask) and the totals, the summaries folded in text order
+    (see swar.scan_blocks)."""
     body = _check(text, true_len, n_blocks, len(pattern))
     if swar._device_kind(text) == "cpu":
-        return block_stats_bytes(
+        stats, mask = block_stats_bytes(
             text, true_len, n_blocks, pattern=pattern, case_sensitive=case_sensitive,
             whole_word=whole_word, want_mask=want_mask,
         )
+        return stats, mask, lines.combine_block_stats(stats)
     pat = pattern if case_sensitive else literal.fold_bytes_host(pattern)
-    stats, mask = _launch(text, true_len, n_blocks, _device_pattern(pat, text.device), len(pat),
-                          int(not case_sensitive), int(whole_word), 0, body if want_mask else 0)
+    stats, mask, totals = _launch(text, true_len, n_blocks, _device_pattern(pat, text.device),
+                                  len(pat), int(not case_sensitive), int(whole_word), 0,
+                                  body if want_mask else 0)
     global LAUNCHES, MASK_LAUNCHES
     LAUNCHES += 1
     MASK_LAUNCHES += want_mask
-    return stats, mask
+    swar.TAIL_FOLDS += 1
+    return stats, mask, totals
 
 
 def _launch(text, true_len, n_blocks, dev_pattern, m, icase, wword, variant, mask_bytes):
+    """One launch: (stats, mask, totals); the scan (variant 0) with the
+    scan tail, a variant with rows only (totals None)."""
     from . import _build
 
     swar._check_cuda(text, torch.uint8, "text")
     stats = torch.empty((n_blocks, STAT_WORDS), dtype=torch.int32, device=text.device)
     mask = torch.empty(mask_bytes, dtype=torch.uint8, device=text.device) if mask_bytes else None
-    stream = torch.cuda.current_stream(text.device).cuda_stream
+    if variant == 0:
+        stream, totals, scratch = swar._tail(text.device)
+    else:
+        stream, totals, scratch = torch.cuda.current_stream(text.device).cuda_stream, None, None
     with torch.cuda.device(text.device):
         err = _build.library().krep_byte_scan(
             text.data_ptr(), n_blocks, None if dev_pattern is None else dev_pattern.data_ptr(),
             m, icase, wword, int(true_len), variant,
-            None if mask is None else mask.data_ptr(), stats.data_ptr(), stream,
+            None if mask is None else mask.data_ptr(), stats.data_ptr(),
+            None if totals is None else totals.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(f"byte_scan kernel launch failed: CUDA error {err}")
-    return stats, mask
+    return stats, mask, totals
 
 
 def variant_stats_plain(text: torch.Tensor, true_len: int, n_blocks: int, *, mode: str,
@@ -140,8 +154,8 @@ def scan_variant(text: torch.Tensor, true_len: int, n_blocks: int, *, mode: str,
     if swar._device_kind(text) == "cpu":
         return variant_stats_plain(text, true_len, n_blocks, mode=mode, pattern=pattern)
     dev_pattern = None if mode == "passthrough" else _device_pattern(pattern, text.device)
-    stats, _ = _launch(text, true_len, n_blocks, dev_pattern, len(pattern), 0, 0,
-                       1 + VARIANTS.index(mode), 0)
+    stats, _, _ = _launch(text, true_len, n_blocks, dev_pattern, len(pattern), 0, 0,
+                          1 + VARIANTS.index(mode), 0)
     VARIANT_LAUNCHES[mode] += 1
     return stats
 

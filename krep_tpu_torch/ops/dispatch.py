@@ -171,18 +171,18 @@ def scan_literal_staged(
     SWAR scan (module docstring); both give the same summaries."""
     if (backend() == "pallas" and mask_kind == "starts" and start_limit is None
             and not prev_word):
-        stats, mask = bytescan.scan_blocks_bytes(
+        stats, mask, totals = bytescan.scan_blocks_bytes(
             staged.u8, staged.true_len, staged.n_blocks, pattern=pattern,
             case_sensitive=case_sensitive, whole_word=whole_word, want_mask=want_mask,
         )
-        return swar.combine_blocks(stats), mask, stats[:, 0]
-    stats, mask = swar.scan_blocks(
+        return totals, mask, stats[:, 0]
+    stats, mask, totals = swar.scan_blocks(
         staged.u8, staged.true_len, staged.n_blocks, pattern=pattern,
         case_sensitive=case_sensitive, whole_word=whole_word,
         prev_word=prev_word, start_limit=start_limit, want_mask=want_mask,
         mask_kind=mask_kind,
     )
-    return swar.combine_blocks(stats), mask, stats[:, 0]
+    return totals, mask, stats[:, 0]
 
 
 def scan_multi_staged(
@@ -195,11 +195,11 @@ def scan_multi_staged(
     0/1 union start mask (None unless want_mask), and the per-64 KiB match
     counts, which are non-zero exactly where the union mask has a set byte
     (all the readback asks of them)."""
-    stats, mask = swar.scan_blocks_multi(
+    stats, mask, totals = swar.scan_blocks_multi(
         staged.u8, staged.true_len, staged.n_blocks, patterns=tuple(patterns),
         case_sensitive=case_sensitive, whole_word=whole_word, want_mask=want_mask,
     )
-    return swar.combine_blocks(stats), mask, stats[:, 0]
+    return totals, mask, stats[:, 0]
 
 
 def _pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:

@@ -116,8 +116,8 @@ def fused_union_mask_device(staged, patterns, case_sensitive, whole_word):
 
 def fused_lines_device(staged, patterns, case_sensitive, whole_word) -> int:
     """Matched-line count of the K-pattern union on the device: the union
-    mask chained into the lines kernel and the ordered combine, so only
-    scalars leave the card (the reference's AC counts lines in-stream,
+    mask chained into the lines kernel, whose last block folds the line
+    count, so only scalars leave the card (the reference's AC counts lines in-stream,
     aho_corasick.c:390-403). With KREP_TPU_MXU_LINES=inkernel, a
     Hamming-eligible set of at most MXU_MAX_PASS patterns over a text with
     a zero tail counts its lines in the Hamming kernel instead, with no
@@ -133,8 +133,8 @@ def fused_lines_device(staged, patterns, case_sensitive, whole_word) -> int:
             whole_word=whole_word, want_lines=True,
         )[1])
     mask, _ = fused_union_mask_device(staged, patterns, case_sensitive, whole_word)
-    stats = swar.lines_blocks(staged.u8, mask, staged.n_blocks)
-    return int(swar.combine_blocks(stats)[1])
+    _, totals = swar.lines_blocks(staged.u8, mask, staged.n_blocks)
+    return int(totals[1])
 
 
 def resolve_positions(params: SearchParams, data: np.ndarray, anchors, patterns) -> SearchResult:

@@ -18,19 +18,28 @@ Port of krep_tpu/ops/pallas_swar.py (`scan_literal`, `scan_shard`,
                      `multi_tables` builds once per set and
                      `device_multi_tables` keeps on the card;
   lines_blocks       the same summaries from a precomputed 0/1 start mask;
-  combine_blocks     one block that folds the summaries in text order into
-                     the match count, the matched-line count and the shard
-                     stats.
+  combine_blocks     one block that folds summaries in text order into the
+                     match count, the matched-line count and the shard
+                     stats: for the kernels that write rows only (the
+                     Hamming kernel's line mode, the byte scan's variants).
+
+scan_blocks, scan_blocks_multi, lines_blocks and bytescan.scan_blocks_bytes
+return that fold too, the totals, beside the rows: the launch's last block
+folds its own rows (the scan tail, csrc/scan_common.cuh `finish_blocks`),
+counting its blocks in a scratch that `tail_scratch` keeps, one per
+(device, stream).
 
 On a CUDA tensor each wrapper launches its kernel or raises. On a CPU
 tensor it runs the kernel's plain PyTorch version (literal.block_stats,
 lines.first_line_fixup, literal.block_stats_multi,
-literal.lines_block_stats, lines.combine_block_stats). `LAUNCHES`
-(`MASK_LAUNCHES` of them with a start mask, `FIRST_LINE_LAUNCHES` with
-mask_kind="first_line", `SHARD_LAUNCHES` with a start_limit),
-`FIXUP_LAUNCHES`, `MULTI_LAUNCHES` (`MULTI_SHARD_LAUNCHES` of them in the
-shard mode), `LINES_LAUNCHES` and `COMBINE_LAUNCHES` count kernel launches,
-so a run can show that it went through the kernels.
+literal.lines_block_stats, lines.combine_block_stats, which also gives the
+totals). `LAUNCHES` (`MASK_LAUNCHES` of them with a start mask,
+`FIRST_LINE_LAUNCHES` with mask_kind="first_line", `SHARD_LAUNCHES` with a
+start_limit), `FIXUP_LAUNCHES`, `MULTI_LAUNCHES` (`MULTI_SHARD_LAUNCHES` of
+them in the shard mode), `LINES_LAUNCHES` and `COMBINE_LAUNCHES` count
+kernel launches, and `TAIL_FOLDS` the launches that folded their own
+totals (the byte scan's too), so a run can show that it went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -58,6 +67,9 @@ MULTI_LAUNCHES = 0
 MULTI_SHARD_LAUNCHES = 0
 LINES_LAUNCHES = 0
 COMBINE_LAUNCHES = 0
+TAIL_FOLDS = 0
+
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _check_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
@@ -90,6 +102,30 @@ def _check_true_len(true_len: int, body: int, start_limit: int | None) -> None:
         raise ValueError("true_len lies past the staged body")
 
 
+def tail_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """The scan tail's scratch on `device` for the CUDA stream `stream` (a
+    handle): its counters and group rows, krep_tail_words() int32 of device
+    memory, zeroed once on that stream; the launch's blocks leave the
+    counters at zero again. Launches on one stream run one after another;
+    launches on two streams use two scratches."""
+    key = (device.index, stream)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        from . import _build
+
+        words = _build.library().krep_tail_words()
+        scratch = _SCRATCH.setdefault(key, torch.zeros(words, dtype=torch.int32, device=device))
+    return scratch
+
+
+def _tail(device: torch.device):
+    """(stream handle, totals, scratch) of a launch with the scan tail on
+    `device`'s current stream."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    totals = torch.empty(STAT_WORDS, dtype=torch.int32, device=device)
+    return stream, totals, tail_scratch(device, stream)
+
+
 def scan_blocks(
     text: torch.Tensor,
     true_len: int,
@@ -105,13 +141,16 @@ def scan_blocks(
 ):
     """Per-64 KiB-block summaries (n_blocks, 8) int32 of
     [count, first, trail, lead, has_nl, 0, 0, 0] over the first
-    n_blocks * 64 KiB bytes of `text`, and the u8 0/1 mask over them (None
-    unless want_mask): every match start, or for mask_kind="first_line"
-    (which needs want_mask) the first match of each line, the -c dedup
-    events; word 5 then holds each block's lead-flag offset (see
-    literal.block_stats). `text` is flat uint8 and holds at least
-    TAIL_BYTES more bytes (the staged zero halo). On a CUDA tensor,
-    "first_line" launches the scan kernel and then the fix-up kernel."""
+    n_blocks * 64 KiB bytes of `text`, the u8 0/1 mask over them (None
+    unless want_mask), and the totals, (8,) int32 [count, matched lines,
+    trail, lead, has_nl, 0, 0, 0]: the summaries folded in text order
+    (lines.combine_block_stats of words 0..4). The mask holds every match
+    start, or for mask_kind="first_line" (which needs want_mask) the first
+    match of each line, the -c dedup events; word 5 then holds each block's
+    lead-flag offset (see literal.block_stats). `text` is flat uint8 and
+    holds at least TAIL_BYTES more bytes (the staged zero halo). On a CUDA
+    tensor the kernel's last block folds the totals; "first_line" launches
+    the fix-up kernel after the scan."""
     m = len(pattern)
     if not 1 <= m <= MAX_PATTERN:
         raise ValueError(f"pattern length {m} outside 1..{MAX_PATTERN}")
@@ -123,12 +162,13 @@ def scan_blocks(
     body = _check_text(text, n_blocks, TAIL_BYTES)
     _check_true_len(true_len, body, start_limit)
     if _device_kind(text) == "cpu":
-        return literal.block_stats(
+        stats, mask = literal.block_stats(
             text, true_len, n_blocks, pattern=pattern,
             case_sensitive=case_sensitive, whole_word=whole_word,
             prev_word=prev_word, start_limit=start_limit, want_mask=want_mask,
             mask_kind=mask_kind,
         )
+        return stats, mask, lines.combine_block_stats(stats)
 
     from . import _build
 
@@ -136,24 +176,26 @@ def scan_blocks(
     pat = pattern if case_sensitive else literal.fold_bytes_host(pattern)
     stats = torch.empty((n_blocks, STAT_WORDS), dtype=torch.int32, device=text.device)
     mask = torch.empty(body, dtype=torch.uint8, device=text.device) if want_mask else None
-    stream = torch.cuda.current_stream(text.device).cuda_stream
+    stream, totals, scratch = _tail(text.device)
     with torch.cuda.device(text.device):
         err = _build.library().krep_scan_blocks(
             text.data_ptr(), n_blocks, pat, m, int(not case_sensitive),
             int(whole_word), int(true_len), int(bool(prev_word)),
             NO_LIMIT if start_limit is None else int(start_limit), int(first_line),
-            None if mask is None else mask.data_ptr(), stats.data_ptr(), stream,
+            None if mask is None else mask.data_ptr(), stats.data_ptr(),
+            totals.data_ptr(), scratch.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(f"scan_blocks kernel launch failed: CUDA error {err}")
-    global LAUNCHES, MASK_LAUNCHES, FIRST_LINE_LAUNCHES, SHARD_LAUNCHES
+    global LAUNCHES, MASK_LAUNCHES, FIRST_LINE_LAUNCHES, SHARD_LAUNCHES, TAIL_FOLDS
     LAUNCHES += 1
+    TAIL_FOLDS += 1
     MASK_LAUNCHES += want_mask and not first_line
     SHARD_LAUNCHES += start_limit is not None
     if first_line:
         FIRST_LINE_LAUNCHES += 1
         first_line_fixup(stats, mask)
-    return stats, mask
+    return stats, mask, totals
 
 
 def first_line_fixup(stats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -291,11 +333,12 @@ def scan_blocks_multi(
     """Per-64 KiB-block summaries (n_blocks, 8) int32 of
     [matches, first, trail, lead, has_nl, 0, 0, 0] of up to 64 patterns in
     one pass — matches summed over the patterns (the Aho-Corasick count),
-    the line fields over the union of their starts — and the u8 0/1 union
-    start mask (None unless want_mask). `text` as for scan_blocks. With a
-    `start_limit` (the shard mode, `MULTI_SHARD_LAUNCHES`), starts and the
-    newlines that count lie below it; `prev_word` is the -w flag of the
-    byte before the text (see literal.block_stats_multi). The kernel's
+    the line fields over the union of their starts — the u8 0/1 union
+    start mask (None unless want_mask), and the totals, the summaries
+    folded in text order as for scan_blocks. `text` as for scan_blocks.
+    With a `start_limit` (the shard mode, `MULTI_SHARD_LAUNCHES`), starts
+    and the newlines that count lie below it; `prev_word` is the -w flag of
+    the byte before the text (see literal.block_stats_multi). The kernel's
     tables come from device_multi_tables."""
     if not 1 <= len(patterns) <= MAX_PATTERNS:
         raise ValueError(f"{len(patterns)} patterns outside 1..{MAX_PATTERNS}")
@@ -304,11 +347,12 @@ def scan_blocks_multi(
     body = _check_text(text, n_blocks, TAIL_BYTES)
     _check_true_len(true_len, body, start_limit)
     if _device_kind(text) == "cpu":
-        return literal.block_stats_multi(
+        stats, mask = literal.block_stats_multi(
             text, true_len, n_blocks, patterns=patterns,
             case_sensitive=case_sensitive, whole_word=whole_word,
             prev_word=prev_word, start_limit=start_limit, want_mask=want_mask,
         )
+        return stats, mask, lines.combine_block_stats(stats)
 
     from . import _build
 
@@ -317,53 +361,63 @@ def scan_blocks_multi(
     stats = torch.empty((n_blocks, STAT_WORDS), dtype=torch.int32, device=text.device)
     mask = torch.empty(body, dtype=torch.uint8, device=text.device) if want_mask else None
     shard = start_limit is not None
-    stream = torch.cuda.current_stream(text.device).cuda_stream
+    stream, totals, scratch = _tail(text.device)
     with torch.cuda.device(text.device):
         err = _build.library().krep_scan_blocks_multi(
             text.data_ptr(), n_blocks, tables.data_ptr(), int(not case_sensitive),
             int(whole_word), int(true_len), int(bool(prev_word)),
             int(start_limit) if shard else NO_LIMIT, int(shard),
-            None if mask is None else mask.data_ptr(), stats.data_ptr(), stream,
+            None if mask is None else mask.data_ptr(), stats.data_ptr(),
+            totals.data_ptr(), scratch.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(f"scan_blocks_multi kernel launch failed: CUDA error {err}")
-    global MULTI_LAUNCHES, MULTI_SHARD_LAUNCHES
+    global MULTI_LAUNCHES, MULTI_SHARD_LAUNCHES, TAIL_FOLDS
     MULTI_LAUNCHES += 1
+    TAIL_FOLDS += 1
     if shard:
         MULTI_SHARD_LAUNCHES += 1
-    return stats, mask
+    return stats, mask, totals
 
 
-def lines_blocks(text: torch.Tensor, mask: torch.Tensor, n_blocks: int) -> torch.Tensor:
+def lines_blocks(text: torch.Tensor, mask: torch.Tensor, n_blocks: int):
     """Per-64 KiB-block summaries (n_blocks, 8) int32 of
     [set mask bytes, first, trail, lead, has_nl, 0, 0, 0] of a u8 0/1 start
-    mask over the first n_blocks * 64 KiB bytes of `text`."""
+    mask over the first n_blocks * 64 KiB bytes of `text`, and the totals,
+    (8,) int32 [set mask bytes, matched lines, trail, lead, has_nl, 0, 0,
+    0]: the summaries folded in text order, on a CUDA tensor by the
+    kernel's last block."""
     body = _check_text(text, n_blocks, 0)
     if mask.dim() != 1 or mask.shape[0] < body or mask.device != text.device:
         raise ValueError("mask must be flat, on the text's device, and cover the body")
     if _device_kind(text) == "cpu":
-        return literal.lines_block_stats(text, mask, n_blocks)
+        stats = literal.lines_block_stats(text, mask, n_blocks)
+        return stats, lines.combine_block_stats(stats)
 
     from . import _build
 
     _check_cuda(text, torch.uint8, "text")
     _check_cuda(mask, torch.uint8, "mask")
     stats = torch.empty((n_blocks, STAT_WORDS), dtype=torch.int32, device=text.device)
-    stream = torch.cuda.current_stream(text.device).cuda_stream
+    stream, totals, scratch = _tail(text.device)
     with torch.cuda.device(text.device):
         err = _build.library().krep_lines_blocks(
-            text.data_ptr(), mask.data_ptr(), n_blocks, stats.data_ptr(), stream,
+            text.data_ptr(), mask.data_ptr(), n_blocks, stats.data_ptr(),
+            totals.data_ptr(), scratch.data_ptr(), stream,
         )
     if err:
         raise RuntimeError(f"lines_blocks kernel launch failed: CUDA error {err}")
-    global LINES_LAUNCHES
+    global LINES_LAUNCHES, TAIL_FOLDS
     LINES_LAUNCHES += 1
-    return stats
+    TAIL_FOLDS += 1
+    return stats, totals
 
 
 def combine_blocks(stats: torch.Tensor) -> torch.Tensor:
     """Fold (B, 8) int32 block summaries in order into (8,) int32:
-    [count, matched lines, trail, lead, has_nl, 0, 0, 0]."""
+    [count, matched lines, trail, lead, has_nl, 0, 0, 0], in a launch of
+    its own: for the summaries of kernels without the scan tail (the
+    Hamming kernel's line mode, bytescan.scan_variant)."""
     if stats.dim() != 2 or stats.shape[1] != STAT_WORDS or stats.shape[0] < 1:
         raise ValueError("stats must be (B, 8) with B >= 1")
     if _device_kind(stats) == "cpu":

@@ -131,10 +131,11 @@ def _scan_shard(sh: Shard, patterns, m_max, case_sensitive, whole_word, want_mas
     kw = dict(case_sensitive=case_sensitive, whole_word=whole_word,
               prev_word=sh.prev_word, start_limit=sh.owned, want_mask=want_mask)
     if len(patterns) == 1:
-        stats, mask = swar.scan_blocks(sh.u8, tl, sh.n_blocks, pattern=patterns[0], **kw)
+        stats, mask, totals = swar.scan_blocks(sh.u8, tl, sh.n_blocks, pattern=patterns[0], **kw)
     else:
-        stats, mask = swar.scan_blocks_multi(sh.u8, tl, sh.n_blocks, patterns=patterns, **kw)
-    return swar.combine_blocks(stats), mask, stats[:, 0]
+        stats, mask, totals = swar.scan_blocks_multi(sh.u8, tl, sh.n_blocks, patterns=patterns,
+                                                     **kw)
+    return totals, mask, stats[:, 0]
 
 
 def sharded_scan(

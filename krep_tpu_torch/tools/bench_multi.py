@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import dispatch, literal, swar
+from ..parallel import lines
 from .bench_hamming import PATTERNS_16, WORDS, corpus, variant_set
 from .bench_kernel import card_name, event_ms
 
@@ -96,15 +97,17 @@ def instances():
 
 
 def check_and_time(st, pats, cs, ww, mask, shard, reps: int) -> tuple[bool, float, int]:
-    """One instance on a staged text: equal to the plain version? Its
+    """One instance on a staged text: equal to the plain version (rows,
+    mask and the scan tail's totals)? Its
     CUDA-event ms and its match count."""
     limit = st.n_blocks * literal.BLOCK_BYTES - LIMIT_BACK if shard else None
     tl = st.true_len if limit is None else min(st.true_len, limit + max(map(len, pats)) - 1)
     kw = dict(patterns=pats, case_sensitive=cs, whole_word=ww, want_mask=mask,
               prev_word=int(shard), start_limit=limit)
-    stats, m = swar.scan_blocks_multi(st.u8, tl, st.n_blocks, **kw)
+    stats, m, totals = swar.scan_blocks_multi(st.u8, tl, st.n_blocks, **kw)
     pstats, pm = literal.block_stats_multi(st.u8, tl, st.n_blocks, **kw)
-    same = torch.equal(stats, pstats) and (m is None or torch.equal(m, pm))
+    same = (torch.equal(stats, pstats) and (m is None or torch.equal(m, pm))
+            and torch.equal(totals, lines.combine_block_stats(pstats)))
     del pm
     ms = event_ms(lambda: swar.scan_blocks_multi(st.u8, tl, st.n_blocks, **kw), reps)
     return same, ms, int(stats[:, 0].sum())

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops import bytescan, dispatch, literal, swar
+from ..parallel import lines
 from .bench_hamming import corpus
 from .bench_kernel import card_name, event_ms
 
@@ -69,9 +70,10 @@ def main(argv: list[str] | None = None, reps: int = 10) -> int:
         for name, pat, kw, tl, nbytes in k1_cases(src, body):
             tl = st.true_len if tl is None else tl
             kw = dict(kw, pattern=pat)
-            stats, mask = swar.scan_blocks(st.u8, tl, st.n_blocks, **kw)
+            stats, mask, totals = swar.scan_blocks(st.u8, tl, st.n_blocks, **kw)
             pstats, pmask = literal.block_stats(st.u8, tl, st.n_blocks, **kw)
-            same = torch.equal(stats, pstats) and (mask is None or torch.equal(mask, pmask))
+            same = (torch.equal(stats, pstats) and (mask is None or torch.equal(mask, pmask))
+                    and torch.equal(totals, lines.combine_block_stats(pstats)))
             ms = event_ms(lambda: swar.scan_blocks(st.u8, tl, st.n_blocks, **kw), reps)
             ok &= same
             print(f"{label}, scan_blocks {name}: {ms:.4f} ms, bound "
@@ -83,9 +85,11 @@ def main(argv: list[str] | None = None, reps: int = 10) -> int:
             pat = b"the" if m == 3 else bytes(src[nl : nl + m])
             for want_mask in (False, True):
                 kw = dict(pattern=pat, want_mask=want_mask)
-                stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, st.n_blocks, **kw)
+                stats, mask, totals = bytescan.scan_blocks_bytes(st.u8, st.true_len,
+                                                                 st.n_blocks, **kw)
                 pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len, st.n_blocks, **kw)
-                same = torch.equal(stats, pstats) and (mask is None or torch.equal(mask, pmask))
+                same = (torch.equal(stats, pstats) and (mask is None or torch.equal(mask, pmask))
+                        and torch.equal(totals, lines.combine_block_stats(pstats)))
                 ms = event_ms(lambda: bytescan.scan_blocks_bytes(st.u8, st.true_len, st.n_blocks,
                                                                  **kw), reps)
                 ok &= same

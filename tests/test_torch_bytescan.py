@@ -45,11 +45,11 @@ def stage_both(text: bytes):
 
 def plain_scan(tst, pat, cs=True, ww=False):
     """[count, lines] and the start offsets of the byte scan's plain version."""
-    stats, mask = bytescan.scan_blocks_bytes(
+    stats, mask, tot = bytescan.scan_blocks_bytes(
         tst.u8, tst.true_len, tst.n_blocks, pattern=pat, case_sensitive=cs,
         whole_word=ww, want_mask=True,
     )
-    tot = lines.combine_block_stats(stats)
+    assert torch.equal(tot, lines.combine_block_stats(stats))
     return tot[:2].tolist(), torch.nonzero(mask).squeeze(1).tolist()
 
 

@@ -28,12 +28,13 @@ def cuda_device():
 
 
 def kernels_vs_plain(st, **kw):
-    """Both kernels on a staged text against their plain versions, exactly;
-    returns the kernel's start mask (or None)."""
-    before = (swar.LAUNCHES, swar.COMBINE_LAUNCHES)
-    stats, mask = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
-    tot = swar.combine_blocks(stats)
-    assert (swar.LAUNCHES, swar.COMBINE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    """The scan and its tail on a staged text against their plain versions,
+    exactly, in one launch (no combine_blocks launch); returns the kernel's
+    start mask (or None)."""
+    before = (swar.LAUNCHES, swar.TAIL_FOLDS, swar.COMBINE_LAUNCHES)
+    stats, mask, tot = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
+    assert (swar.LAUNCHES, swar.TAIL_FOLDS, swar.COMBINE_LAUNCHES) == (before[0] + 1,
+                                                                       before[1] + 1, before[2])
     pstats, pmask = literal.block_stats(st.u8, st.true_len, st.n_blocks, **kw)
     assert torch.equal(stats, pstats)
     assert (mask is None) == (pmask is None)
@@ -65,8 +66,8 @@ def test_kernels_match_plain(cuda_device):
 @pytest.mark.parametrize("want_mask", [False, True], ids=["count", "mask"])
 def test_kernels_match_plain_over_1024_blocks(cuda_device, want_mask):
     """The early-exit slab shape of the slab loop (64 MiB owned plus the
-    pattern's halo: a 1536-block bucket), where the combine kernel folds
-    more than one summary per thread."""
+    pattern's halo: a 1536-block bucket), where the scan tail folds more
+    than one summary per thread."""
     owned = 64 << 20
     unit = np.frombuffer(naive.gen_english(17, 1 << 20), np.uint8)
     text = np.tile(unit, owned // unit.shape[0] + 1)[: owned + 3]
@@ -155,13 +156,15 @@ def test_multi_kernels_match_plain(cuda_device, patterns):
     for cs, ww in [(True, False), (False, False), (True, True), (False, True)]:
         before = (swar.MULTI_LAUNCHES, swar.LINES_LAUNCHES, mxu.LAUNCHES)
         kw = dict(patterns=patterns, case_sensitive=cs, whole_word=ww, want_mask=True)
-        stats, mask = swar.scan_blocks_multi(st.u8, st.true_len, st.n_blocks, **kw)
+        stats, mask, totals = swar.scan_blocks_multi(st.u8, st.true_len, st.n_blocks, **kw)
         pstats, pmask = literal.block_stats_multi(st.u8, st.true_len, st.n_blocks, **kw)
         assert torch.equal(stats, pstats) and torch.equal(mask, pmask)
+        assert torch.equal(totals, lines.combine_block_stats(pstats))
         want = sorted({s for p in patterns for s in naive.all_starts(text, p, cs, ww)})
         assert torch.nonzero(mask).squeeze(1).tolist() == want
-        lstats = swar.lines_blocks(st.u8, mask, st.n_blocks)
+        lstats, ltotals = swar.lines_blocks(st.u8, mask, st.n_blocks)
         assert torch.equal(lstats, literal.lines_block_stats(st.u8, mask, st.n_blocks))
+        assert torch.equal(ltotals, lines.combine_block_stats(lstats))
         tables = mxu.device_tables(mxu.build_tables(patterns, cs, ww), cuda_device)
         counts, hmask = mxu.hamming_scan(
             st.u8, st.n_blocks, tables, case_sensitive=cs, want_mask=True
@@ -237,11 +240,12 @@ def test_multi_scan_instances_match_plain(cuda_device, kind, name):
                   prev_word=int(shard), start_limit=limit if shard else None)
         true_len = tl if shard else st.true_len
         before = (swar.MULTI_LAUNCHES, swar.MULTI_SHARD_LAUNCHES)
-        stats, mask = swar.scan_blocks_multi(st.u8, true_len, st.n_blocks, **kw)
+        stats, mask, totals = swar.scan_blocks_multi(st.u8, true_len, st.n_blocks, **kw)
         assert (swar.MULTI_LAUNCHES, swar.MULTI_SHARD_LAUNCHES) == (before[0] + 1,
                                                                     before[1] + int(shard))
         pstats, pmask = literal.block_stats_multi(st.u8, true_len, st.n_blocks, **kw)
         assert torch.equal(stats, pstats), (cs, ww, want_mask, shard)
+        assert torch.equal(totals, lines.combine_block_stats(pstats)), (cs, ww, want_mask, shard)
         assert (mask is None) == (not want_mask)
         if want_mask:
             assert torch.equal(mask, pmask), (cs, ww, shard)
@@ -309,11 +313,12 @@ def test_first_line_kernels_match_plain(cuda_device, size):
                 before = (swar.LAUNCHES, swar.FIRST_LINE_LAUNCHES, swar.FIXUP_LAUNCHES)
                 kw = dict(pattern=pat, case_sensitive=cs, whole_word=ww, prev_word=prev,
                           start_limit=limit, want_mask=True, mask_kind="first_line")
-                stats, mask = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
+                stats, mask, totals = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
                 assert (swar.LAUNCHES, swar.FIRST_LINE_LAUNCHES, swar.FIXUP_LAUNCHES) == tuple(
                     b + 1 for b in before)
                 pstats, pmask = literal.block_stats(st.u8, st.true_len, st.n_blocks, **kw)
                 assert torch.equal(stats, pstats) and torch.equal(mask, pmask)
+                assert torch.equal(totals, lines.combine_block_stats(pstats))
                 if limit is None:
                     starts = np.array(naive.all_starts(text, pat, cs, ww), np.int64)
                     nl = np.flatnonzero(np.frombuffer(text, np.uint8) == 10)
@@ -329,8 +334,8 @@ def test_first_line_fixup_kernel_matches_plain(cuda_device):
     against its plain twin (lines.first_line_fixup)."""
     text = np.frombuffer(line_mix_text(21, 1 << 20), np.uint8)
     st = dispatch.stage(np.tile(text, 64), cuda_device)
-    stats, mask = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, pattern=b"the", want_mask=True,
-                                   mask_kind="first_line")
+    stats, mask, _ = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, pattern=b"the",
+                                      want_mask=True, mask_kind="first_line")
     blockwise = mask.clone()
     blockwise[stats[:, 5][stats[:, 5] >= 0].long()] = 1  # undo the clears
     want = lines.first_line_fixup(stats, blockwise.clone())
@@ -385,9 +390,10 @@ def test_shard_modes_match_plain(cuda_device, patterns):
                 before = (swar.MULTI_SHARD_LAUNCHES, mxu.SHARD_LAUNCHES)
                 kw = dict(patterns=patterns, case_sensitive=cs, whole_word=ww, prev_word=prev,
                           start_limit=limit, want_mask=True)
-                stats, mask = swar.scan_blocks_multi(st.u8, tl, st.n_blocks, **kw)
+                stats, mask, totals = swar.scan_blocks_multi(st.u8, tl, st.n_blocks, **kw)
                 pstats, pmask = literal.block_stats_multi(st.u8, tl, st.n_blocks, **kw)
                 assert torch.equal(stats, pstats) and torch.equal(mask, pmask)
+                assert torch.equal(totals, lines.combine_block_stats(pstats))
                 assert not mask[limit:].any()
                 tables = mxu.device_tables(mxu.build_tables(patterns, cs, ww), cuda_device)
                 hk = dict(case_sensitive=cs, want_mask=True, start_limit=limit, prev_flag=prev)
@@ -479,11 +485,13 @@ def test_byte_scan_matches_plain(cuda_device, size):
             for want_mask in (False, True):
                 kw = dict(pattern=pat, case_sensitive=cs, whole_word=ww, want_mask=want_mask)
                 before = (bytescan.LAUNCHES, bytescan.MASK_LAUNCHES)
-                stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, st.n_blocks, **kw)
+                stats, mask, totals = bytescan.scan_blocks_bytes(st.u8, st.true_len,
+                                                                 st.n_blocks, **kw)
                 assert (bytescan.LAUNCHES, bytescan.MASK_LAUNCHES) == (before[0] + 1,
                                                                       before[1] + want_mask)
                 pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len, st.n_blocks, **kw)
                 assert torch.equal(stats, pstats)
+                assert torch.equal(totals, lines.combine_block_stats(pstats))
                 if want_mask:
                     assert torch.equal(mask, pmask)
                     want = naive.all_starts(text, pat, cs, ww)
@@ -697,12 +705,13 @@ def test_k1_word_scan_instances_match_plain(cuda_device, kind):
                 kw.update(pattern=p, case_sensitive=cs, whole_word=ww)
                 tl = limit + m - 1 if "start_limit" in kw else st.true_len
                 before = (swar.LAUNCHES, swar.MASK_LAUNCHES, swar.SHARD_LAUNCHES)
-                stats, mask = swar.scan_blocks(st.u8, tl, st.n_blocks, **kw)
+                stats, mask, totals = swar.scan_blocks(st.u8, tl, st.n_blocks, **kw)
                 starts = kw.get("want_mask") and kw.get("mask_kind") != "first_line"
                 assert (swar.LAUNCHES, swar.MASK_LAUNCHES, swar.SHARD_LAUNCHES) == (
                     before[0] + 1, before[1] + bool(starts), before[2] + ("start_limit" in kw))
                 pstats, pmask = literal.block_stats(st.u8, tl, st.n_blocks, **kw)
                 assert torch.equal(stats, pstats), (m, cs, ww, kw)
+                assert torch.equal(totals, lines.combine_block_stats(pstats)), (m, cs, ww, kw)
                 if mask is not None or pmask is not None:
                     assert torch.equal(mask, pmask), (m, cs, ww, kw)
                 found += int(stats[:, 0].sum())
@@ -729,9 +738,11 @@ def test_byte_word_scan_instances_match_plain(cuda_device, kind):
             p = pat if cs else pat.upper()
             for want_mask in (False, True):
                 kw = dict(pattern=p, case_sensitive=cs, whole_word=ww, want_mask=want_mask)
-                stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, st.n_blocks, **kw)
+                stats, mask, totals = bytescan.scan_blocks_bytes(st.u8, st.true_len,
+                                                                 st.n_blocks, **kw)
                 pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len, st.n_blocks, **kw)
                 assert torch.equal(stats, pstats), (m, cs, ww, want_mask)
+                assert torch.equal(totals, lines.combine_block_stats(pstats))
                 if want_mask:
                     assert torch.equal(mask, pmask), (m, cs, ww)
                 got = got if got is not None else int(stats[:, 0].sum())
@@ -758,16 +769,19 @@ def test_word_scan_dense_candidates_match_plain(cuda_device):
     for pat in (b"aaaab", b"a" * 8 + b"b", b"a" * 16 + b"b", b"a" * 63 + b"b", b"a" * 64):
         for kw in (dict(), dict(want_mask=True), dict(want_mask=True, mask_kind="first_line"),
                    dict(whole_word=True, want_mask=True)):
-            stats, mask = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, pattern=pat, **kw)
+            stats, mask, totals = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, pattern=pat,
+                                                   **kw)
             pstats, pmask = literal.block_stats(st.u8, st.true_len, st.n_blocks, pattern=pat, **kw)
             assert torch.equal(stats, pstats) and (mask is None or torch.equal(mask, pmask))
+            assert torch.equal(totals, lines.combine_block_stats(pstats))
             if not kw:
                 assert int(stats[:, 0].sum()) > 0, pat  # runs of "a" hold every one
     for pat in (b"a" * 64 + b"b", b"a" * 999 + b"b", b"a" * 16):
         kw = dict(pattern=pat, want_mask=True)
-        stats, mask = bytescan.scan_blocks_bytes(st.u8, st.true_len, st.n_blocks, **kw)
+        stats, mask, totals = bytescan.scan_blocks_bytes(st.u8, st.true_len, st.n_blocks, **kw)
         pstats, pmask = bytescan.block_stats_bytes(st.u8, st.true_len, st.n_blocks, **kw)
         assert torch.equal(stats, pstats) and torch.equal(mask, pmask), len(pat)
+        assert torch.equal(totals, lines.combine_block_stats(pstats))
 
 
 @pytest.mark.cuda
@@ -783,7 +797,197 @@ def test_first_line_word_scan_long_lines(cuda_device):
                         (b"the cat x the cat", True, False)):
         kw = dict(pattern=pat, case_sensitive=cs, whole_word=ww, want_mask=True,
                   mask_kind="first_line")
-        stats, mask = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
+        stats, mask, totals = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
         pstats, pmask = literal.block_stats(st.u8, st.true_len, st.n_blocks, **kw)
         assert torch.equal(stats, pstats) and torch.equal(mask, pmask), pat
-        assert int(mask.sum()) == int(lines.combine_block_stats(stats)[1])
+        assert torch.equal(totals, lines.combine_block_stats(pstats)), pat
+        assert int(mask.sum()) == int(totals[1])
+
+
+# ------------------------------------- the scan tail and the lines kernel
+
+TAIL_BLOCKS = [1, 2, 257, 1536]
+
+
+def raw_text(n_blocks: int, seed: int = 9) -> torch.Tensor:
+    """n_blocks * 64 KiB of the config-1 corpus and a 4 KiB zero halo, flat
+    on the CPU: any block count, not only the staging buckets. Lines of
+    three blocks and more (no newline in them) start at block 1."""
+    body = n_blocks * 65536
+    buf = np.zeros(body + dispatch.HALO_BYTES, np.uint8)
+    buf[:body] = np.resize(bench_hamming.corpus(1 << 21, seed), body)
+    if n_blocks > 4:
+        seg = buf[65536 + 100 : 4 * 65536 + 900]
+        seg[seg == 10] = 32
+    return torch.from_numpy(buf)
+
+
+def tail_limits(n_blocks: int) -> list[int]:
+    """Start limits that leave blocks with no owned byte: 0, and one a
+    third of the way into the text (blocks past it write zeros)."""
+    return sorted({0, max(0, (n_blocks - 1) // 3 * 65536 - 5)})
+
+
+def check_totals(stats: torch.Tensor, totals: torch.Tensor, pstats: torch.Tensor, what) -> None:
+    assert torch.equal(stats, pstats), what
+    assert torch.equal(totals, lines.combine_block_stats(stats)), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", TAIL_BLOCKS)
+def test_scan_tail_totals_match_plain(cuda_device, n_blocks):
+    """Every family of launches that folds its own totals (the K=1 count,
+    start mask, first_line and shard instances; the byte scan; the
+    K-pattern count, mask and shard instances; the lines kernel) returns
+    totals equal to lines.combine_block_stats of its rows, with
+    combine_blocks never launched: at 1, 2, 257 and 1,536 blocks and at
+    start limits that leave blocks with no owned byte."""
+    text = raw_text(n_blocks).to(cuda_device)
+    body = n_blocks * 65536
+    before = (swar.COMBINE_LAUNCHES, swar.TAIL_FOLDS)
+    n = 0
+    for kw in (dict(), dict(want_mask=True), dict(want_mask=True, mask_kind="first_line"),
+               dict(case_sensitive=False, whole_word=True)):
+        stats, _, totals = swar.scan_blocks(text, body, n_blocks, pattern=b"the", **kw)
+        pstats, _ = literal.block_stats(text, body, n_blocks, pattern=b"the", **kw)
+        check_totals(stats, totals, pstats, ("K=1", kw))
+        n += 1
+    for want_mask in (False, True):
+        stats, _, totals = bytescan.scan_blocks_bytes(text, body, n_blocks, pattern=b"quick",
+                                                      want_mask=want_mask)
+        pstats, _ = bytescan.block_stats_bytes(text, body, n_blocks, pattern=b"quick",
+                                               want_mask=want_mask)
+        check_totals(stats, totals, pstats, ("byte scan", want_mask))
+        n += 1
+    pats = tuple(bench_hamming.PATTERNS_16)
+    for want_mask in (False, True):
+        stats, mask, totals = swar.scan_blocks_multi(text, body, n_blocks, patterns=pats,
+                                                     want_mask=want_mask)
+        pstats, _ = literal.block_stats_multi(text, body, n_blocks, patterns=pats,
+                                              want_mask=want_mask)
+        check_totals(stats, totals, pstats, ("K=16", want_mask))
+        n += 1
+    lstats, ltotals = swar.lines_blocks(text, mask, n_blocks)
+    check_totals(lstats, ltotals, literal.lines_block_stats(text, mask, n_blocks), "lines")
+    n += 1
+    for limit in tail_limits(n_blocks):
+        for prev, want_mask in ((0, False), (1, True)):
+            kw = dict(prev_word=prev, start_limit=limit, want_mask=want_mask)
+            stats, _, totals = swar.scan_blocks(text, limit + 2, n_blocks, pattern=b"the", **kw)
+            pstats, _ = literal.block_stats(text, limit + 2, n_blocks, pattern=b"the", **kw)
+            check_totals(stats, totals, pstats, ("K=1 shard", limit, prev))
+            tl = limit + max(map(len, pats)) - 1
+            stats, _, totals = swar.scan_blocks_multi(text, tl, n_blocks, patterns=pats, **kw)
+            pstats, _ = literal.block_stats_multi(text, tl, n_blocks, patterns=pats, **kw)
+            check_totals(stats, totals, pstats, ("K=16 shard", limit, prev))
+            n += 2
+    assert (swar.COMBINE_LAUNCHES, swar.TAIL_FOLDS) == (before[0], before[1] + n)
+
+
+@pytest.mark.cuda
+def test_scan_tail_back_to_back(cuda_device):
+    """Launches of every tail-carrying kernel back to back on one stream
+    (one scratch), at other block counts, none synchronised before the
+    last: each launch's totals equal the fold of its own rows."""
+    runs = []
+    for n_blocks in (257, 1, 1536, 2, 257):
+        text = raw_text(n_blocks, seed=n_blocks).to(cuda_device)
+        body = n_blocks * 65536
+        limit = tail_limits(n_blocks)[-1]
+        stats, mask, totals = swar.scan_blocks_multi(text, body, n_blocks,
+                                                     patterns=(b"the", b"fox"), want_mask=True)
+        runs.append((stats, totals))
+        runs.append(swar.lines_blocks(text, mask, n_blocks))
+        runs.append(swar.scan_blocks(text, limit + 2, n_blocks, pattern=b"the", start_limit=limit,
+                                     want_mask=True)[::2])
+        runs.append(bytescan.scan_blocks_bytes(text, body, n_blocks, pattern=b"e")[::2])
+        runs.append(swar.scan_blocks(text, body, n_blocks, pattern=b"the", want_mask=True,
+                                     mask_kind="first_line")[::2])
+    torch.cuda.synchronize()
+    for i, (stats, totals) in enumerate(runs):
+        assert torch.equal(totals, lines.combine_block_stats(stats)), i
+    scratch = swar.tail_scratch(cuda_device, torch.cuda.current_stream().cuda_stream)
+    assert not scratch[512 * 8 :].any()  # every counter back at zero
+
+
+@pytest.mark.cuda
+def test_scan_tail_two_streams(cuda_device):
+    """Two host threads, each launching on a stream of its own at the same
+    time (two scratches): every launch's totals equal the fold of its own
+    rows."""
+    import threading
+
+    texts = [raw_text(1536, seed=3).to(cuda_device), raw_text(257, seed=4).to(cuda_device)]
+    torch.cuda.synchronize()
+    results: list[list] = [[], []]
+    errors = []
+
+    def work(i: int) -> None:
+        try:
+            stream = torch.cuda.Stream(cuda_device)
+            text, n_blocks = texts[i], texts[i].shape[0] // 65536
+            body = n_blocks * 65536
+            with torch.cuda.stream(stream):
+                for r in range(12):
+                    pat = (b"the", b"fox", b"e", b"quick")[r % 4]
+                    if i == 0:
+                        out = swar.scan_blocks(text, body, n_blocks, pattern=pat)
+                    else:
+                        out = swar.scan_blocks_multi(text, body, n_blocks, patterns=(pat, b"dog"))
+                    results[i].append((out[0], out[2]))
+            stream.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for i in (0, 1):
+        assert len(results[i]) == 12
+        for stats, totals in results[i]:
+            assert torch.equal(totals, lines.combine_block_stats(stats)), i
+
+
+def lines_edge_mask(text: np.ndarray, seed: int) -> np.ndarray:
+    """A 0/1 start mask over `text`: sparse random flags, flags on newline
+    bytes, and flags on both sides of lane (16 B), stride (512 B), warp
+    (8 KiB) and block edges; zero in the second half of each odd block."""
+    rng = np.random.default_rng(seed)
+    mask = (rng.random(text.shape[0]) < 0.003).astype(np.uint8)
+    nl = np.flatnonzero(text == 10)
+    mask[nl[::7]] = 1
+    for e in WORD_EDGES:
+        for b in range(0, text.shape[0] // 65536):
+            for at in (b * 65536 + e, b * 65536 + e + 1):
+                if at < text.shape[0]:
+                    mask[at] = 1
+    for b in range(1, text.shape[0] // 65536, 2):
+        mask[b * 65536 + 32768 : (b + 1) * 65536] = 0
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", [1, 3, 257])
+def test_lines_kernel_edge_cases(cuda_device, n_blocks):
+    """The lines kernel against literal.lines_block_stats, exactly: flags on
+    newline bytes, lines across lane, stride, warp and block edges, blocks
+    with no newline (a line over three blocks), an all-zero mask; its
+    totals equal the fold of its rows."""
+    text = raw_text(n_blocks, seed=n_blocks)
+    body = n_blocks * 65536
+    if n_blocks >= 3:  # no newline in blocks 1-2
+        text[65536 : 3 * 65536][text[65536 : 3 * 65536] == 10] = 32
+    masks = [lines_edge_mask(text[:body].numpy(), n_blocks), np.zeros(body, np.uint8)]
+    dtext = text.to(cuda_device)
+    for mask in masks:
+        dmask = torch.from_numpy(mask).to(cuda_device)
+        before = swar.LINES_LAUNCHES
+        stats, totals = swar.lines_blocks(dtext, dmask, n_blocks)
+        assert swar.LINES_LAUNCHES == before + 1
+        check_totals(stats, totals, literal.lines_block_stats(dtext, dmask, n_blocks),
+                     int(mask.sum()))
+        starts = np.flatnonzero(mask).tolist()
+        assert int(totals[1]) == naive.matched_lines(text[:body].numpy().tobytes(), starts)

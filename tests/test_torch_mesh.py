@@ -100,11 +100,12 @@ def test_block_stats_multi_shard_matches_scan_shard_multi(patterns, cs, ww, prev
         case_sensitive=cs, whole_word=ww, want_mask=True, interpret=True,
     )
     t = torch.from_numpy(row.copy())
-    stats, mask = swar.scan_blocks_multi(
+    stats, mask, totals = swar.scan_blocks_multi(
         t, tl, blocks, patterns=patterns, case_sensitive=cs, whole_word=ww,
         prev_word=prev, start_limit=limit, want_mask=True,
     )
-    got = swar.combine_blocks(stats)[:5].tolist()
+    assert torch.equal(totals, swar.combine_blocks(stats))
+    got = totals[:5].tolist()
     assert got == [int(c), int(f), int(trail), int(lead), int(has_nl)]
     assert np.array_equal(mask.numpy(), np.asarray(mk).view(np.uint8)[: mask.shape[0]])
     text = row.tobytes()  # the -w after-byte may lie past true_len
@@ -118,7 +119,7 @@ def test_block_stats_multi_shard_after_underscore_caret():
     patterns = (b"ab", b"cd", b"^ab")
     row = np.frombuffer((b"_^ab cd\n" * 9000)[: BLOCK + mesh.HALO_BYTES], np.uint8)
     limit = BLOCK - 5
-    stats, mask = swar.scan_blocks_multi(
+    stats, mask, totals = swar.scan_blocks_multi(
         torch.from_numpy(row.copy()), limit + 2, 1, patterns=patterns, whole_word=True,
         prev_word=1, start_limit=limit, want_mask=True,
     )
@@ -126,7 +127,8 @@ def test_block_stats_multi_shard_after_underscore_caret():
     per = [[s for s in naive.all_starts(text, p, True, True) if s < limit] for p in patterns]
     want = sorted({s for ss in per for s in ss})
     assert torch.nonzero(mask).squeeze(1).tolist() == want
-    assert swar.combine_blocks(stats)[0] == sum(map(len, per))
+    assert totals[0] == sum(map(len, per))
+    assert torch.equal(totals, swar.combine_blocks(stats))
 
 
 # ------------------------------------------------- kernel 3, shard mode

@@ -144,14 +144,15 @@ def test_block_stats_multi_across_blocks():
     text = bytes(text)
     tst = dispatch.stage(text, CPU)
     for cs, ww in ((True, False), (False, True)):
-        stats, mask = swar.scan_blocks_multi(
+        stats, mask, totals = swar.scan_blocks_multi(
             tst.u8, tst.true_len, tst.n_blocks, patterns=patterns,
             case_sensitive=cs, whole_word=ww, want_mask=True,
         )
         per = [naive.all_starts(text, p, cs, ww) for p in patterns]
         want = sorted({s for ss in per for s in ss})
         assert torch.nonzero(mask).squeeze(1).tolist() == want
-        assert swar.combine_blocks(stats)[:2].tolist() == [
+        assert torch.equal(totals, swar.combine_blocks(stats))
+        assert totals[:2].tolist() == [
             sum(map(len, per)), naive.matched_lines(text, want)
         ]
 
@@ -639,7 +640,7 @@ def test_hamming_lines_match_mxu_want_lines(name):
     chained, mask = mxu.hamming_scan(tst.u8, tst.n_blocks, tables, case_sensitive=cs,
                                      want_mask=True)
     assert none is None and torch.equal(stats[:, 0], chained) and torch.equal(counts, chained)
-    assert torch.equal(stats[:, 1:], swar.lines_blocks(tst.u8, mask, tst.n_blocks)[:, 1:])
+    assert torch.equal(stats[:, 1:], swar.lines_blocks(tst.u8, mask, tst.n_blocks)[0][:, 1:])
     with pytest.raises(ValueError):
         mxu.hamming_scan(tst.u8, tst.n_blocks, tables, want_lines=True, want_mask=True)
 
@@ -757,9 +758,10 @@ def test_lines_block_stats_matches_lines_from_mask(patterns):
     }
     assert len(want) == 1
     want = want.pop()
-    stats = swar.lines_blocks(tst.u8, mask, tst.n_blocks)
+    stats, totals = swar.lines_blocks(tst.u8, mask, tst.n_blocks)
     assert torch.equal(stats, literal.lines_block_stats(tst.u8, mask, tst.n_blocks))
-    got = int(swar.combine_blocks(stats)[1])
+    assert torch.equal(totals, swar.combine_blocks(stats))
+    got = int(totals[1])
     assert got == want == naive.matched_lines(text, torch.nonzero(mask).squeeze(1).tolist())
 
 

@@ -146,7 +146,8 @@ def test_block_flags_plus_fixup_equal_first_line(seed):
     twin from the block summaries, equal the whole text's flags."""
     text = straddling_text(10 + seed, 6 * BLOCK)
     st = dispatch.stage(text, CPU)
-    _, starts = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, pattern=b"the", want_mask=True)
+    _, starts, _ = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, pattern=b"the",
+                                    want_mask=True)
     stats, want = literal.block_stats(
         st.u8, st.true_len, st.n_blocks, pattern=b"the", want_mask=True, mask_kind="first_line",
     )

@@ -138,6 +138,67 @@ def verify_rest(fw, text, g, pw, m, wword, before0):
     return ok
 
 
+class WarpLines:
+    """scan_common.cuh WarpLines and fold_lines16 over arrays shaped
+    (block, warp, lane): each warp's first-in-line count (per lane), open
+    line flag, has_nl, lead, whether it has met no match and no newline
+    yet, and the block offset of its lead flag."""
+
+    def __init__(self, n_blocks: int):
+        self.first = np.zeros((n_blocks, WARPS, 32), np.int64)
+        self.state = np.zeros((n_blocks, WARPS), np.uint64)
+        self.has_nl = np.zeros((n_blocks, WARPS), bool)
+        self.lead = np.zeros((n_blocks, WARPS), bool)
+        self.lead_open = np.ones((n_blocks, WARPS), bool)
+        self.lead_off = np.full((n_blocks, WARPS), -1, np.int64)
+
+    def fold(self, hits, nl, so):
+        """One stride: the lanes' 16-bit hit and newline words; so (1, WARPS)
+        the stride's block offsets. Returns the first-in-line flags."""
+        gen, prop = hits & ~nl, ~nl & np.uint64(0xFFFF)
+        s0 = gen + prop
+        T, N = ballot((s0 >> np.uint64(16)) != 0), ballot(nl != 0)
+        D = (T | N)[..., None] & ((np.uint64(1) << LANE) - np.uint64(1))
+        enter = np.where(D != 0, (T[..., None] >> top_bit(D)) & np.uint64(1),
+                         self.state[..., None])
+        open_ = ((s0 + enter) ^ gen ^ prop)
+        fst = hits & ~open_ & np.uint64(0xFFFF)
+        self.first += popc16(fst)
+        upto = np.where(nl != 0, nl ^ (nl - np.uint64(1)), np.uint64(0xFFFF))
+        L = ballot((hits & upto) != 0) & np.where(N != 0, N ^ (N - np.uint64(1)), M32)
+        found = self.lead_open & (L != 0)
+        for b_, w_ in zip(*np.nonzero(found)):
+            lb = int(L[b_, w_])
+            ll = (lb & -lb).bit_length() - 1
+            self.lead_off[b_, w_] = int(so[0, w_]) + 16 * ll + ffs16(hits[b_, w_, ll])
+        self.lead |= found
+        self.lead_open &= (L == 0) & (N == 0)
+        DA = T | N
+        self.state = np.where(DA != 0, (T >> top_bit(DA)) & np.uint64(1), self.state)
+        self.has_nl |= N != 0
+        return fst
+
+    def warp_sums(self, count):
+        """put_warp_summary: each block's warp summaries (count, first,
+        trail, lead, has_nl), count and first summed over the lanes."""
+        return [[(int(count[b, w].sum()), int(self.first[b, w].sum()), int(self.state[b, w]),
+                  int(self.lead[b, w]), int(self.has_nl[b, w])) for w in range(WARPS)]
+                for b in range(count.shape[0])]
+
+
+def combine(x, y):
+    """scan_common.cuh combine of two (count, first, trail, lead, has_nl)."""
+    return (x[0] + y[0], x[1] + y[1] - (x[2] & y[3]), y[2] if y[4] else x[2] | y[2],
+            x[3] if x[4] else x[3] | y[3], x[4] | y[4])
+
+
+def fold_in_order(sums):
+    acc = sums[0]
+    for y in sums[1:]:
+        acc = combine(acc, y)
+    return acc
+
+
 def word_scan_emulation(u8, true_len, n_blocks, pattern, *, icase=False, wword=False,
                         prev_word=0, start_limit=None, mask_kind=None, lines_on=True):
     """The kernel's (n_blocks, 8) int32 stats and u8 mask (None without a
@@ -167,12 +228,7 @@ def word_scan_emulation(u8, true_len, n_blocks, pattern, *, icase=False, wword=F
     past = (limit <= base)[:, 0]                             # blocks wholly past the limit
 
     count = np.zeros((B, WARPS, 32), np.int64)
-    first = np.zeros((B, WARPS, 32), np.int64)
-    state = np.zeros((B, WARPS), np.uint64)
-    has_nl = np.zeros((B, WARPS), bool)
-    lead = np.zeros((B, WARPS), bool)
-    lead_open = np.ones((B, WARPS), bool)
-    lead_off = np.full((B, WARPS), -1, np.int64)
+    wl = WarpLines(B)
     flags_all = np.zeros((B, WARPS, STRIDES, 32), np.uint64)
     warp_off = w_ix[..., 0] * WARP_BYTES                     # (1, WARPS)
     g_before = base + warp_off - 1
@@ -241,29 +297,9 @@ def word_scan_emulation(u8, true_len, n_blocks, pattern, *, icase=False, wword=F
             nl = nl_own & (newline_bits4(W[0]) | newline_bits4(W[1]) << np.uint64(4) |
                            newline_bits4(W[2]) << np.uint64(8) |
                            newline_bits4(W[3]) << np.uint64(12))
-            gen, prop = hits & ~nl, ~nl & np.uint64(0xFFFF)
-            s0 = gen + prop
-            T, N = ballot((s0 >> np.uint64(16)) != 0), ballot(nl != 0)
-            D = (T | N)[..., None] & ((np.uint64(1) << LANE) - np.uint64(1))
-            enter = np.where(D != 0, (T[..., None] >> top_bit(D)) & np.uint64(1),
-                             state[..., None])
-            open_ = ((s0 + enter) ^ gen ^ prop)
-            fst = hits & ~open_ & np.uint64(0xFFFF)
-            first += popc16(fst)
+            fst = wl.fold(hits, nl, so)
             if mask_kind == "first_line":
                 flags = fst
-            upto = np.where(nl != 0, nl ^ (nl - np.uint64(1)), np.uint64(0xFFFF))
-            L = ballot((hits & upto) != 0) & np.where(N != 0, N ^ (N - np.uint64(1)), M32)
-            found = lead_open & (L != 0)
-            for b_, w_ in zip(*np.nonzero(found)):
-                lb = int(L[b_, w_])
-                ll = (lb & -lb).bit_length() - 1
-                lead_off[b_, w_] = int(so[0, w_]) + 16 * ll + ffs16(hits[b_, w_, ll])
-            lead |= found
-            lead_open &= (L == 0) & (N == 0)
-            DA = T | N
-            state = np.where(DA != 0, (T >> top_bit(DA)) & np.uint64(1), state)
-            has_nl |= N != 0
         flags_all[:, :, k] = flags
 
     stats = np.zeros((B, 8), np.int64)
@@ -271,8 +307,8 @@ def word_scan_emulation(u8, true_len, n_blocks, pattern, *, icase=False, wword=F
     if mask_kind is not None:
         bits = (flags_all[..., None] >> np.arange(16, dtype=np.uint64)) & np.uint64(1)
         mask = bits.astype(np.uint8).reshape(-1)  # (block, warp, stride, lane, 16): text order
-    wsum = [[(int(count[b, w].sum()), int(first[b, w].sum()), int(state[b, w]), int(lead[b, w]),
-              int(has_nl[b, w])) for w in range(WARPS)] for b in range(B)]
+    wsum = wl.warp_sums(count)
+    lead_off = wl.lead_off
     for b in range(B):
         if past[b]:
             stats[b] = 0
@@ -291,11 +327,7 @@ def word_scan_emulation(u8, true_len, n_blocks, pattern, *, icase=False, wword=F
                         break
                     if wsum[b][u][4]:
                         break
-        acc = wsum[b][0]
-        for y in wsum[b][1:]:
-            acc = (acc[0] + y[0], acc[1] + y[1] - (acc[2] & y[3]), y[2] if y[4] else acc[2] | y[2],
-                   acc[3] if acc[4] else acc[3] | y[3], acc[4] | y[4])
-        stats[b, :5] = acc
+        stats[b, :5] = fold_in_order(wsum[b])
         if mask_kind == "first_line":
             stats[b, 5] = -1
             for w in range(WARPS):
@@ -469,3 +501,182 @@ def test_byte_word_scan_matches_pallas_scan():
     assert lines.combine_block_stats(stats)[:2].tolist() == [int(c), int(nlines)]
     assert np.array_equal(mask.numpy(), np.asarray(mk)[: mask.shape[0]].astype(np.uint8))
     assert int(c) >= len(EDGES)
+
+
+# ------------------------------------------------------------ lines kernel
+
+def nonzero_bits16(v):
+    """lines_scan.cu nonzero_bits16: the non-zero bytes of a lane's 4 words."""
+    b = (u64(v)[..., None] >> (np.uint64(8) * np.arange(4, dtype=np.uint64))) & np.uint64(0xFF)
+    bits = ((b != 0).astype(np.uint64) << np.arange(4, dtype=np.uint64)).sum(-1, dtype=np.uint64)
+    return (bits[..., 0] | bits[..., 1] << np.uint64(4) | bits[..., 2] << np.uint64(8) |
+            bits[..., 3] << np.uint64(12))
+
+
+def lines_emulation(u8, mask, n_blocks):
+    """csrc/lines_scan.cu step by step: each warp's 8 KiB in strides of 512
+    bytes, lane l holding 16 text bytes and the same 16 mask bytes; the hit
+    word from the non-zero mask bytes, the newline word, count the popc of
+    the hits, the shared line fold (WarpLines.fold), the warps' summaries
+    in order. Returns the (n_blocks, 8) int32 rows."""
+    body = n_blocks * BLOCK
+    text = np.asarray(u8, np.uint8)[:body].view("<u4").astype(np.uint64).reshape(-1, 4)
+    flags = np.asarray(mask, np.uint8)[:body].view("<u4").astype(np.uint64).reshape(-1, 4)
+    b_ix = np.arange(n_blocks)[:, None, None]
+    w_ix = np.arange(WARPS)[None, :, None]
+    l_ix = np.arange(32)[None, None, :]
+    count = np.zeros((n_blocks, WARPS, 32), np.int64)
+    wl = WarpLines(n_blocks)
+    for k in range(STRIDES):
+        c = b_ix * (BLOCK // 16) + w_ix * (WARP_BYTES // 16) + k * 32 + l_ix
+        t = text[c]
+        hits = nonzero_bits16(flags[c])
+        nl = (newline_bits4(t[..., 0]) | newline_bits4(t[..., 1]) << np.uint64(4) |
+              newline_bits4(t[..., 2]) << np.uint64(8) | newline_bits4(t[..., 3]) << np.uint64(12))
+        count += popc16(hits)
+        wl.fold(hits, nl, w_ix[..., 0] * WARP_BYTES + k * STRIDE)
+    wsum = wl.warp_sums(count)
+    stats = np.zeros((n_blocks, 8), np.int64)
+    for b in range(n_blocks):
+        stats[b, :5] = fold_in_order(wsum[b])
+    return torch.from_numpy(stats.astype(np.int32))
+
+
+def lines_text(n_blocks: int, seed: int) -> np.ndarray:
+    """n_blocks * 64 KiB of English text (a partial last block on three
+    blocks, as a staging bucket pads it), with a line of two blocks and
+    more on three blocks (from the end of block 0 on: blocks 1 and 2 hold
+    no newline)."""
+    size = n_blocks * BLOCK - (20_000 if n_blocks == 3 else 0)
+    text = np.frombuffer(naive.gen_english(seed, size + 1000)[:size], np.uint8).copy()
+    if n_blocks == 3:
+        seg = text[BLOCK - 300 :]
+        seg[seg == 10] = 32
+    return text
+
+
+def lines_mask(text: np.ndarray, body: int, seed: int, nl_flags: bool) -> np.ndarray:
+    """A 0/1 start mask: sparse random flags, flags on both sides of lane,
+    stride, warp and block edges, some on newline bytes (nl_flags), and a
+    run of flags across a lane."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(body, np.uint8)
+    n = text.shape[0]
+    mask[:n] = rng.random(n) < 0.004
+    for e in EDGES:
+        for at in (e, e + 1):
+            if at < n:
+                mask[at] = 1
+    nl = np.flatnonzero(text == 10)
+    mask[nl] = 0
+    if nl_flags:
+        mask[nl[::5]] = 1
+    mask[3 * STRIDE + 5 : 3 * STRIDE + 40] = 1
+    return mask
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2, 3])
+@pytest.mark.parametrize("nl_flags", [False, True], ids=["plain", "flags on newlines"])
+def test_lines_kernel_model_matches_plain(n_blocks, nl_flags):
+    """The lines kernel's model against literal.lines_block_stats, exactly
+    (integers): flags on newline bytes or none, lines across lane, stride,
+    warp and block edges, blocks with no newline (three blocks), an
+    all-zero mask."""
+    text = lines_text(n_blocks, 40 + n_blocks)
+    tst = dispatch.stage(text.tobytes(), CPU)
+    assert tst.n_blocks == n_blocks
+    body = n_blocks * BLOCK
+    u8 = tst.u8.numpy()
+    for mask in (lines_mask(text, body, n_blocks, nl_flags), np.zeros(body, np.uint8)):
+        want = literal.lines_block_stats(tst.u8, torch.from_numpy(mask), n_blocks)
+        got = lines_emulation(u8, mask, n_blocks)
+        assert torch.equal(got, want), (n_blocks, nl_flags, int(mask.sum()))
+    if n_blocks == 3:
+        assert int(got[1, 4]) == 0 and int(got[2, 4]) == 0  # no newline in blocks 1 and 2
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2])
+def test_lines_kernel_model_matches_pallas(n_blocks):
+    """The lines kernel's model against interpret-mode
+    pallas_swar.lines_from_mask (nl_start_matches on: some flags sit on
+    newline bytes, as the caller sets it for a '\\n'-leading member)."""
+    text = lines_text(n_blocks, 50 + n_blocks)[: n_blocks * BLOCK - 5000]
+    jst = jdispatch.stage(text.tobytes())
+    tst = convert.staged_from_reference(jst._np, text.shape[0], CPU)
+    body = tst.n_blocks * BLOCK
+    mask = lines_mask(text, body, n_blocks, True)
+    want = int(pallas_swar.lines_from_mask(jst.u32, mask.view(np.uint32), jst.true_len,
+                                           nl_start_matches=True, interpret=True))
+    got = lines.combine_block_stats(lines_emulation(tst.u8.numpy(), mask, tst.n_blocks))
+    assert int(got[1]) == want == naive.matched_lines(text.tobytes(), np.flatnonzero(mask).tolist())
+
+
+# --------------------------------------------------------------- scan tail
+
+TAIL_THREADS = 256
+GROUP_BLOCKS = 64  # scan_common.cuh kGroupBlocks
+
+
+def fold_rows_model(summ):
+    """scan_common.cuh fold_rows over n <= 512 summaries: passes of 256,
+    thread t taking summary r0 + t, warp_fold's ordered tree over each
+    warp's 32 lanes (shfl_down by 1, 2, 4, 8, 16, the lower lane folding
+    the upper), then the 8 warp sums in order onto the passes before."""
+    assert len(summ) <= 2 * TAIL_THREADS
+    b = (0, 0, 0, 0, 0)
+    for r0 in range(0, len(summ), TAIL_THREADS):
+        thread = [summ[r0 + t] if r0 + t < len(summ) else (0, 0, 0, 0, 0)
+                  for t in range(TAIL_THREADS)]
+        for w in range(TAIL_THREADS // 32):
+            lanes = thread[32 * w : 32 * w + 32]
+            off = 1
+            while off < 32:
+                lanes = [combine(lanes[i], lanes[i + off]) if i % (2 * off) == 0 else lanes[i]
+                         for i in range(32)]
+                off *= 2
+            b = combine(b, lanes[0])
+    return b
+
+
+def tail_fold_model(rows: np.ndarray) -> list[int]:
+    """scan_common.cuh finish_blocks: each group of GROUP_BLOCKS rows folded
+    by fold_rows (by the group's last block), then the group rows by
+    fold_rows (by the launch's last group). Returns the 8 totals."""
+    summ = [tuple(int(x) for x in r[:5]) for r in rows]
+    groups = [fold_rows_model(summ[g : g + GROUP_BLOCKS])
+              for g in range(0, len(summ), GROUP_BLOCKS)]
+    b = fold_rows_model(groups)
+    count = (b[0] + (1 << 31)) % (1 << 32) - (1 << 31)  # the kernel's int32 sum wraps
+    return [count, *b[1:], 0, 0, 0]
+
+
+def tail_rows(rng, n: int, past: int) -> np.ndarray:
+    """(n, 8) int32 block rows that real text could give (a block without a
+    newline has trail == lead == (count > 0)), the last `past` of them all
+    zero, as blocks past start_limit write them; also a zero run inside."""
+    rows = np.zeros((n, 8), np.int32)
+    rows[:, 0] = rng.integers(0, 50, n) * (rng.random(n) < 0.6)
+    any_match = rows[:, 0] > 0
+    rows[:, 1] = np.minimum(rows[:, 0], rng.integers(1, 20, n))
+    has_nl = rng.random(n) < 0.7
+    rows[:, 2] = np.where(has_nl, any_match & (rng.random(n) < 0.5), any_match)
+    rows[:, 3] = np.where(has_nl, any_match & (rng.random(n) < 0.5), any_match)
+    rows[:, 4] = has_nl
+    rows[n - past :] = 0
+    if n > 40:
+        rows[n // 3 : n // 3 + 17] = 0
+    return rows
+
+
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 1536, 16_384, 24_576])
+def test_tail_fold_model_matches_combine(n):
+    """The scan tail's fold order (groups of 64 rows, then the group rows;
+    each a row per thread, warp_fold and the warp sums) against
+    lines.combine_block_stats, exactly (integers):
+    rows as real text gives them, with runs of all-zero rows as blocks past
+    start_limit write them (a third of the 1 GiB slab's 24,576)."""
+    rng = np.random.default_rng(n)
+    for past in sorted({0, n // 3, n - 1}):
+        rows = tail_rows(rng, n, past)
+        want = lines.combine_block_stats(torch.from_numpy(rows)).tolist()
+        assert tail_fold_model(rows) == want, (n, past)
