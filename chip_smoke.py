@@ -75,12 +75,14 @@ mixed 4-20 byte members, config 3c):
                on bench.py's sets at K = 16, 32, 48 and 64 (count only, equal
                counts), the crossover that MXU_MIN_K stands for.
 The recursive slice (-r) adds:
-  3r. kernels — the scan kernel's first_line mode and its fix-up kernel
-               against their plain versions, exactly, at 64 MiB, with and
-               without -i and -w, for pattern lengths 1, 3, 5, 17 and 64, on
-               text whose lines cross the thread spans and block edges,
-               span three blocks and more, and leave blocks without a
-               newline;
+  3r. kernels — the scan kernel's first_line mode (one launch: its tail
+               finishes the mask across blocks) against its plain version,
+               and the fix-up step alone (the launch without it, finished by
+               lines.first_line_fixup) against the launch with it, exactly,
+               at 64 MiB, with and without -i and -w, for pattern lengths
+               1, 3, 5, 17 and 64, on text whose lines cross the thread
+               spans and block edges, span three blocks and more, and leave
+               blocks without a newline;
   4r. main path — a source tree on the config-5 recipe (bench.py:640-666)
                scaled to 20,000 files in 400 directories plus 8 files of
                2-8 MiB (the solo route), about 0.50 GB, made with numpy from
@@ -90,16 +92,18 @@ The recursive slice (-r) adds:
                `-r the` and `-r -c -e the -e fox` on part0 (2,501 files),
                and the config-5 tree itself with the break-even unset (the
                host route) and at 0 (the device route), each byte-identical
-               to the native host route; the first_line kernels must have
-               launched during `-r -c`. Each warm run prints its wall time,
-               batches, files/s and the host seconds spent in staging,
-               submit_batch and drain_batch; part0 is also walked and read
-               alone, with no scan;
-  5r. shapes  — the first_line kernels against their plain versions,
-               exactly, and timed with CUDA events at the batch shapes: the
-               walker's full batch (past 64 MiB: the 1,536-block bucket, the
-               main path's shape) and the largest batch within 64 MiB (1,024
-               blocks); the scan kernel timed alone, without the fix-up.
+               to the native host route; during `-r -c` every batch must be
+               one first_line launch (no fix-up launch). Each warm run
+               prints its wall time, batches, files/s and the host seconds
+               spent in staging, submit_batch and drain_batch; part0 is also
+               walked and read alone, with no scan;
+  5r. shapes  — the first_line scan and its fix-up step against their
+               plain versions, exactly, and timed with CUDA events at the
+               batch shapes: the walker's full batch (past 64 MiB: the
+               1,536-block bucket, the main path's shape), the largest batch
+               within 64 MiB (1,024 blocks) and 1,000 blocks (a last group
+               of 40); the step's time is the launch with it minus the
+               launch without it.
 The sharded slice (parallel/mesh.py, -t) adds:
   3m. kernels — the shard modes against their plain versions, exactly, at
                64 MiB, on text with a match across the start limit and one
@@ -166,13 +170,16 @@ cost-attribution variants, the Hamming kernel's want_lines and strict) add:
 The regex and dense-DFA slice (-E, KREP_TPU_DFA=1) adds:
   3d. kernels — the dense-DFA kernel (csrc/dfa_scan.cu) against its plain
                version (ac.dfa_walk_plain on the card), exactly, at 64 MiB:
-               count and mask instances, with and without -i, on bench.py's
-               100-pattern set and on 1,024 patterns whose automaton comes
-               near the 65,536-state cap (a 64 MiB table);
+               each table kind (shared 16-bit, global 32-bit, wide with
+               emit[]) in its count and mask instances, with and without -i,
+               on bench.py's 100-pattern set (every kind), on 1,024 patterns
+               whose automaton comes near the 65,536-state cap (a 64 MiB
+               table; global and wide) and on 65,600 copies of "the" beside
+               the 100 (a count past 65,535: wide);
   4d. main path — the CLI under KREP_TPU_DFA=1 with `-f pats100` on 16 MiB:
                `-c -o`, `-c`, `-m 1000 -o` and `-w -c -o`, each
                byte-identical to the native host route; both instances must
-               have launched;
+               have launched, on the shared table;
   4e. main path — -E on 1 GiB of bench.py's config-4 corpus (its recipe,
                seed 4242): `-c`, `-o` and `-i -c` with '[A-Z][a-z]+ing' (one
                factor: the K=1 word scan) and '[Mm]orning|[Nn]othing' (two:
@@ -184,9 +191,10 @@ The regex and dense-DFA slice (-E, KREP_TPU_DFA=1) adds:
                (KREP_TPU_REGEX_FILTER_MIN above the size: glibc alone, no
                jax); the prefilter's kernels must have launched, and the
                host-only route (the port with its prefilter off) is timed;
-  5d. shapes  — the dense-DFA kernel exact against plain at 1 GiB (both
-               sets, -i), then both instances timed beside their bounds and
-               plain times at 16 MiB, 64 MiB and 1 GiB.
+  5d. shapes  — the dense-DFA kernel exact against plain at 1 GiB (every
+               kind of the three sets, -i), then every instance timed beside
+               its bound and plain time at 16 MiB, 64 MiB and 1 GiB, and the
+               count by span (16 B to 4 KiB) at 16 MiB and 1 GiB.
 It then prints one JSON line of kernels and, last, the result line. It
 exits non-zero, with no result line, when any phase fails; when no card is
 available or the package is missing (a copy of the script run outside the
@@ -207,6 +215,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -242,6 +251,53 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+def in_background(fn):
+    """Starts fn() in a thread (the build's nvcc processes, the writing of
+    data the later phases read) and returns a function that waits for it
+    and returns (its result, its seconds), raising what it raised."""
+    out = {}
+
+    def run() -> None:
+        t = time.perf_counter()
+        try:
+            out["value"] = fn()
+        except Exception as e:  # noqa: BLE001 - raised again by wait()
+            out["error"] = e
+        out["s"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["value"], out["s"]
+
+    return wait
+
+
+START = time.perf_counter()
+
+
+def phase(name: str) -> None:
+    """A phase's first line: the seconds since the script started."""
+    say(f"-- phase {name} at {time.perf_counter() - START:.1f} s")
+
+
+def token_table(tokens: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """The tokens as a zero-padded (V, L) uint8 table and its (V, L) mask
+    of real bytes: table[idx][real[idx]] is the concatenation of the
+    tokens idx, with no int64 index per output byte."""
+    width = max(map(len, tokens))
+    table = np.zeros((len(tokens), width), np.uint8)
+    real = np.zeros((len(tokens), width), bool)
+    for i, t in enumerate(tokens):
+        table[i, : len(t)] = np.frombuffer(t, np.uint8)
+        real[i, : len(t)] = True
+    return table, real
+
+
 def gen_corpus(path: str, size: int, seed: int = 12345) -> None:
     """bench.py's config-1 corpus recipe (lines of 3-8 words from its
     vocabulary, joined by spaces), vectorised over a million lines at a
@@ -249,18 +305,15 @@ def gen_corpus(path: str, size: int, seed: int = 12345) -> None:
     rng = np.random.default_rng(seed)
     tokens = [w + b" " for w in WORDS]
     lens = np.array([len(t) for t in tokens], dtype=np.int64)
-    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
-    pool = np.frombuffer(b"".join(tokens), np.uint8)
+    table, real = token_table(tokens)
     written = 0
     with open(path, "wb") as f:
         while written < size:
             k = rng.integers(3, 9, 1 << 20)
             idx = rng.integers(0, len(WORDS), int(k.sum()))
-            wl = lens[idx]
-            ends = np.cumsum(wl)
+            ends = np.cumsum(lens[idx])
             total = int(ends[-1])
-            wid = np.repeat(np.arange(len(idx)), wl)
-            chunk = pool[offs[idx][wid] + np.arange(total) - (ends - wl)[wid]]
+            chunk = table[idx][real[idx]]
             chunk[ends[np.cumsum(k) - 1] - 1] = 10  # a line's last space -> '\n'
             take = min(total, size - written)
             f.write(chunk[:take].tobytes())
@@ -278,8 +331,7 @@ def gen_corpus_ing(path: str, size: int, seed: int = 4242) -> None:
     rng = np.random.default_rng(seed)
     tokens = [w + b" " for w in WORDS + ING_WORDS]
     lens = np.array([len(t) for t in tokens], dtype=np.int64)
-    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
-    pool = np.frombuffer(b"".join(tokens), np.uint8)
+    table, real = token_table(tokens)
     written = 0
     with open(path, "wb") as f:
         while written < size:
@@ -289,11 +341,9 @@ def gen_corpus_ing(path: str, size: int, seed: int = 4242) -> None:
             hit = rng.random(k.shape[0]) < 0.03
             at = first[hit] + (rng.random(int(hit.sum())) * k[hit]).astype(np.int64)
             idx[at] = len(WORDS) + rng.integers(0, len(ING_WORDS), int(hit.sum()))
-            wl = lens[idx]
-            ends = np.cumsum(wl)
+            ends = np.cumsum(lens[idx])
             total = int(ends[-1])
-            wid = np.repeat(np.arange(len(idx)), wl)
-            chunk = pool[offs[idx][wid] + np.arange(total) - (ends - wl)[wid]]
+            chunk = table[idx][real[idx]]
             chunk[ends[np.cumsum(k) - 1] - 1] = 10  # a line's last space -> '\n'
             take = min(total, size - written)
             f.write(chunk[:take].tobytes())
@@ -501,6 +551,7 @@ def ptxas_lines(log: str) -> list[str]:
             name = m.group(1)
             h = re.search(r"hamming_scan_kernelILi(\d)ELb(\d)ELi(\d)ELb(\d)", name)
             k = re.search(r"scan_blocks_multi_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+            d = re.search(r"dfa_scan_kernelILi(\d)ELb(\d)E", name)
             w = re.search(r"(scan_blocks|byte_scan)_kernelILi(\d)ELb(\d)ELi(\d)E(?:Lb(\d)E)?", name)
             if w:
                 kern, cls, word, mask, lin = w.groups()
@@ -513,6 +564,9 @@ def ptxas_lines(log: str) -> list[str]:
             elif k:
                 name = "scan_blocks_multi_kernel<fold={}, word={}, mask={}, shard={}>".format(
                     *k.groups())
+            elif d:
+                name = "dfa_scan_kernel<{}, mask={}>".format(
+                    ("shared", "global", "wide")[int(d.group(1))], d.group(2))
             else:
                 k = re.search(r"\d+([a-z_]+kernel)(I\w+?EE)?", name)
                 name = k.group(1) + (k.group(2) or "") if k else name[:80]
@@ -524,8 +578,9 @@ def ptxas_lines(log: str) -> list[str]:
     return out
 
 
-def cuda_ms(fn, reps: int) -> float:
-    fn()
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -561,9 +616,10 @@ def reset_launches() -> None:
     from krep_tpu_torch.ops import ac, bytescan, mxu, swar
 
     ac.LAUNCHES = ac.MASK_LAUNCHES = 0
+    ac.KIND_LAUNCHES.update(dict.fromkeys(ac.TABLE_KINDS, 0))
 
     swar.LAUNCHES = swar.COMBINE_LAUNCHES = swar.MULTI_LAUNCHES = swar.LINES_LAUNCHES = 0
-    swar.FIRST_LINE_LAUNCHES = swar.FIXUP_LAUNCHES = swar.MULTI_SHARD_LAUNCHES = 0
+    swar.FIRST_LINE_LAUNCHES = swar.MULTI_SHARD_LAUNCHES = 0
     swar.MASK_LAUNCHES = swar.SHARD_LAUNCHES = swar.TAIL_FOLDS = 0
     mxu.LAUNCHES = mxu.SHARD_LAUNCHES = mxu.LINES_LAUNCHES = mxu.STRICT_LAUNCHES = 0
     bytescan.LAUNCHES = bytescan.MASK_LAUNCHES = 0
@@ -603,7 +659,8 @@ def read_launches(*names: str) -> dict:
               TAIL: swar.TAIL_FOLDS,
               "scan_blocks mask": swar.MASK_LAUNCHES, "scan_blocks shard": swar.SHARD_LAUNCHES,
               "scan_blocks first_line": swar.FIRST_LINE_LAUNCHES,
-              "first_line_fixup": swar.FIXUP_LAUNCHES,
+              # each first_line launch finishes its mask in its tail
+              "first_line_fixup": swar.FIRST_LINE_LAUNCHES,
               "scan_blocks_multi": swar.MULTI_LAUNCHES, "lines_blocks": swar.LINES_LAUNCHES,
               "hamming_scan": mxu.LAUNCHES,
               "scan_blocks_multi shard": swar.MULTI_SHARD_LAUNCHES,
@@ -612,7 +669,8 @@ def read_launches(*names: str) -> dict:
               **{f"bench_kernel {v}": n for v, n in bytescan.VARIANT_LAUNCHES.items()},
               "hamming_scan lines": mxu.LINES_LAUNCHES,
               "hamming_scan strict": mxu.STRICT_LAUNCHES,
-              "dfa_scan": ac.LAUNCHES - ac.MASK_LAUNCHES, "dfa_scan mask": ac.MASK_LAUNCHES}
+              "dfa_scan": ac.LAUNCHES - ac.MASK_LAUNCHES, "dfa_scan mask": ac.MASK_LAUNCHES,
+              **{f"dfa_scan {k}": n for k, n in ac.KIND_LAUNCHES.items()}}
     return {k: counts[k] for k in names or counts}
 
 
@@ -766,22 +824,72 @@ def single_pattern_identities(st, patterns, *, case_sensitive=True, whole_word=F
 
 
 def dfa_vs_plain(st, max_err, tables, *, case_sensitive: bool, n_lanes: int = 1 << 16):
-    """The dense-DFA kernel's count and mask instances on a staged text
+    """The dense-DFA kernel's count and mask instances of every table kind
+    in `tables` (table, emit, maxlen, {kind: packed}) on a staged text
     against its plain version on the card (ac.dfa_walk_plain over n_lanes
     lanes: the lane count changes only its time), exactly; folds the
     differences into max_err, returns (emissions, flagged ends)."""
     from krep_tpu_torch.ops import ac
 
-    table, emit, maxlen = tables
+    table, emit, maxlen, packs = tables
     kw = dict(maxlen=maxlen, case_sensitive=case_sensitive)
-    ctotal, _ = ac.dfa_walk(st.u8, st.true_len, st.n_blocks, table, emit, want_mask=False, **kw)
-    total, mask = ac.dfa_walk(st.u8, st.true_len, st.n_blocks, table, emit, want_mask=True, **kw)
     ptotal, pmask = ac.dfa_walk_plain(st.u8, st.true_len, st.n_blocks, table, emit,
                                       want_mask=True, n_lanes=n_lanes, **kw)
-    max_err["dfa_scan"] = max(max_err["dfa_scan"], abs(int(ctotal) - int(ptotal)))
-    max_err["dfa_scan mask"] = max(max_err["dfa_scan mask"], abs(int(total) - int(ptotal)),
-                                   int((mask != pmask).any()))
+    for kind, packed in packs.items():
+        ctotal, _ = ac.dfa_walk(st.u8, st.true_len, st.n_blocks, table, emit, want_mask=False,
+                                packed=packed, **kw)
+        total, mask = ac.dfa_walk(st.u8, st.true_len, st.n_blocks, table, emit, want_mask=True,
+                                  packed=packed, **kw)
+        err = abs(int(ctotal) - int(ptotal))
+        merr = max(abs(int(total) - int(ptotal)), int((mask != pmask).any()))
+        max_err["dfa_scan"] = max(max_err["dfa_scan"], err)
+        max_err["dfa_scan mask"] = max(max_err["dfa_scan mask"], merr)
+        del mask
     return int(ptotal), int(pmask.sum(dtype=torch.int64))
+
+
+def first_line_raw(u8, true_len: int, n_blocks: int, mode: int, *, pattern: bytes,
+                   case_sensitive=True, whole_word=False, prev_word=0, start_limit=None,
+                   out=None, **_):
+    """One launch of the K=1 first_line instance through its library entry
+    (not counted as a main-path launch), its tail included: mode 1 finishes
+    the mask in the tail as swar.scan_blocks does, mode 2 leaves each
+    block's flags as if it began on a closed line (the launch without the
+    fix-up step). Returns (stats, mask, totals), into `out` when given."""
+    from krep_tpu_torch.ops import _build, literal, swar
+
+    dev = u8.device
+    stats, mask, totals = out or (
+        torch.empty((n_blocks, 8), dtype=torch.int32, device=dev),
+        torch.empty(n_blocks * 65536, dtype=torch.uint8, device=dev),
+        torch.empty(8, dtype=torch.int32, device=dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pat = pattern if case_sensitive else literal.fold_bytes_host(pattern)
+    err = _build.library().krep_scan_blocks(
+        u8.data_ptr(), n_blocks, pat, len(pat), int(not case_sensitive), int(whole_word),
+        int(true_len), int(bool(prev_word)), swar.NO_LIMIT if start_limit is None else
+        int(start_limit), mode, mask.data_ptr(), stats.data_ptr(), totals.data_ptr(),
+        swar.tail_scratch(dev, stream).data_ptr(), stream)
+    check(err == 0, f"krep_scan_blocks first_line={mode}: CUDA error {err}")
+    return stats, mask, totals
+
+
+def dfa_raw(st, packed, maxlen: int, span: int, mask=None, total=None) -> None:
+    """One launch of the dense-DFA kernel through its library entry (not
+    counted as a main-path launch, no allocation: the kernel's own time
+    where the wrapper's host work would outlast it); the emissions add
+    into `total`."""
+    from krep_tpu_torch.ops import _build, ac
+
+    dev = st.u8.device
+    entries = packed.entries
+    err = _build.library().krep_dfa_scan(
+        st.u8.data_ptr(), int(st.true_len), st.n_blocks * 65536, span, maxlen - 1,
+        ac.TABLE_KINDS.index(packed.kind), entries.data_ptr(),
+        entries.numel() * entries.element_size(), packed.emit.data_ptr(), packed.entry0,
+        None if mask is None else mask.data_ptr(), total.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err == 0, f"krep_dfa_scan: CUDA error {err}")
 
 
 def refuse(cause: str) -> int:
@@ -823,20 +931,9 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib = _build.build()
-    say(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib, ROOT)}")
-    ptx = ptxas_lines(lib.with_suffix(".log").read_text())
-    for line in ptx:
-        say(f"  ptxas: {line}")
-    for kern in ("scan_blocks_kernel", "byte_scan_kernel"):
-        mine = [line for line in ptx if line.startswith(kern + "<")]
-        regs = [int(line.split("Used ")[1].split()[0]) for line in mine if "Used " in line]
-        spills = [line for line in mine if "spill" in line and " 0 bytes spill stores" not in line]
-        say(f"  ptxas: {kern}: {len(mine)} instances, {min(regs, default=0)}-{max(regs, default=0)} "
-            f"registers, {len(spills)} with spills")
-
+    # 2. build, in a thread while the corpus is written (nvcc runs in
+    # processes of its own, so the two overlap)
+    built = in_background(_build.build)
     workdir = tempfile.mkdtemp(prefix="krep_chip_smoke_")
     try:
         big = os.path.join(workdir, "corpus_1g.txt")
@@ -851,6 +948,18 @@ def main() -> int:
         with open(mid, "wb") as f:
             f.write(head[:MIB16])
         say(f"corpus: 1 GiB + 64 MiB + 16 MiB written in {time.perf_counter() - t0:.1f} s")
+        lib, build_s = built()
+        say(f"build: {build_s:.2f} s -> {os.path.relpath(lib, ROOT)}")
+        ptx = ptxas_lines(lib.with_suffix(".log").read_text())
+        for line in ptx:
+            say(f"  ptxas: {line}")
+        for kern in ("scan_blocks_kernel", "byte_scan_kernel"):
+            mine = [line for line in ptx if line.startswith(kern + "<")]
+            regs = [int(line.split("Used ")[1].split()[0]) for line in mine if "Used " in line]
+            spills = [line for line in mine
+                      if "spill" in line and " 0 bytes spill stores" not in line]
+            say(f"  ptxas: {kern}: {len(mine)} instances, {min(regs, default=0)}-"
+                f"{max(regs, default=0)} registers, {len(spills)} with spills")
 
         max_err = {"scan_blocks": 0, "combine_blocks": 0, TAIL: 0, "scan_blocks mask": 0,
                    "scan_blocks shard": 0}
@@ -872,6 +981,7 @@ def main() -> int:
             note_tail(max_err, stats, tot)
             return tot, mask
 
+        phase("3")
         # 3. kernels against their plain versions, exactly
         text = harden(np.frombuffer(head, np.uint8))
         st = dispatch.stage(text, dev)
@@ -920,6 +1030,7 @@ def main() -> int:
         say(f"kernels vs plain at 64 MiB: {n_checks} cases (count and mask instances), all exact")
         del tot, mask
 
+        phase("3+")
         # 3+. the multi-pattern kernels against their plain versions at 64 MiB
         pats16, pats64, pats_mixed = tuple(PATTERNS_16), variant_set(64), mixed_set()
         max_err.update(scan_blocks_multi=0, lines_blocks=0, hamming_scan=0)
@@ -950,8 +1061,9 @@ def main() -> int:
         say(f"multi-pattern kernels vs plain at 64 MiB: {n_multi} cases, all exact")
         del st
 
-        # 3r. the first_line mode (scan, carry fold and fix-up) against its
-        # plain version at 64 MiB, on text whose lines cross the thread
+        phase("3r")
+        # 3r. the first_line mode (scan, carry fold and the tail's fix-up, one
+        # launch) against its plain version at 64 MiB, on text whose lines cross the thread
         # spans and the block edges, span three blocks and more, and leave
         # whole blocks without a newline
         ltext = long_lines(text)
@@ -959,9 +1071,12 @@ def main() -> int:
         max_err.update({"scan_blocks first_line": 0, "first_line_fixup": 0})
 
         def first_line_vs_plain(staged, **kw):
-            """The first_line scan and fix-up against literal.block_stats'
-            first_line mode and the fix-up's plain twin; folds the
-            differences into max_err, returns (stats, mask, totals)."""
+            """The first_line scan (its tail finishing the mask) against
+            literal.block_stats' first_line mode; the fix-up step alone as
+            the same launch without it (block-by-block flags) finished by
+            its plain twin, lines.first_line_fixup. Folds the differences
+            into max_err, returns (stats, mask, totals, block-by-block
+            flags)."""
             kw.update(want_mask=True, mask_kind="first_line")
             stats, mask, totals = swar.scan_blocks(staged.u8, staged.true_len, staged.n_blocks,
                                                    **kw)
@@ -969,14 +1084,13 @@ def main() -> int:
             err = max(int((stats - pstats).abs().max()), int((mask != pmask).any()))
             note_tail(max_err, stats, totals)
             max_err["scan_blocks first_line"] = max(max_err["scan_blocks first_line"], err)
-            # the fix-up alone, from the block-by-block flags (the clears undone)
-            blockwise = mask.clone()
-            blockwise[stats[:, 5][stats[:, 5] >= 0].long()] = 1
-            fixed = swar.first_line_fixup(stats, blockwise.clone())
-            ferr = int((fixed != lines.first_line_fixup(stats, blockwise)).any())
-            ferr = max(ferr, int((fixed != mask).any()))
+            bstats, blockwise, btotals = first_line_raw(staged.u8, staged.true_len,
+                                                        staged.n_blocks, 2, **kw)
+            fixed = lines.first_line_fixup(bstats, blockwise.clone())
+            ferr = max(int((bstats != stats).any()), int((btotals != totals).any()),
+                       int((fixed != mask).any()))
             max_err["first_line_fixup"] = max(max_err["first_line_fixup"], ferr)
-            return stats, mask, totals
+            return stats, mask, totals, blockwise
 
         nl_free = None
         line_start = int(np.flatnonzero(ltext[5000:] == 10)[3]) + 5001
@@ -985,8 +1099,8 @@ def main() -> int:
             got = []
             for cs in (True, False):
                 for ww in (False, True):
-                    stats, mask, tot = first_line_vs_plain(st, pattern=pat, case_sensitive=cs,
-                                                           whole_word=ww)
+                    stats, mask, tot, _ = first_line_vs_plain(st, pattern=pat,
+                                                              case_sensitive=cs, whole_word=ww)
                     flags = int(mask.sum(dtype=torch.int64))
                     check(flags == int(tot[1]), f"first_line flags {flags} != lines {int(tot[1])}")
                     got.append([int(tot[0]), flags, int((stats[:, 5] >= 0).sum())])
@@ -1002,6 +1116,7 @@ def main() -> int:
             f"{st.n_blocks} blocks hold no newline, longest line {int(gaps.max())} bytes")
         del st, stats, mask, tot, ltext
 
+        phase("3m")
         # 3m. the shard modes of the K-pattern scan and of the Hamming kernel
         # against their plain versions at 64 MiB: a start limit inside the
         # body with a match across it (matches end past it, in what is the
@@ -1039,6 +1154,7 @@ def main() -> int:
         say(f"shard modes vs plain at 64 MiB: {n_shard} cases, all exact")
         del st, stext
 
+        phase("3v")
         # 3v. the byte scan (KREP_TPU_BACKEND=pallas) against its plain
         # version at 64 MiB, exactly: pattern lengths 1..4096, each long one
         # planted across 64 KiB block edges, after "_^" and at the end, on
@@ -1099,6 +1215,7 @@ def main() -> int:
         vtext.tofile(vpath)
         del st, stats, mask, pstats, pmask, vtext
 
+        phase("3h")
         # 3h. the Hamming kernel's line mode and strict mode against their
         # plain versions at 64 MiB: lines on the 64 variants, the mixed set,
         # -w, -i and a '\n'-leading set (plain: literal.lines_block_stats of
@@ -1147,40 +1264,56 @@ def main() -> int:
             "mode's rows folded by the standalone combine_blocks, exact too)")
         del st, htext, stats, pstats, counts, mask, pcounts, pmask
 
+        phase("3d")
         # 3d. the dense-DFA kernel of KREP_TPU_DFA=1 (csrc/dfa_scan.cu)
-        # against its plain version at 64 MiB, exactly: count and mask
-        # instances, with and without -i, on bench.py's 100-pattern set and
-        # on a set whose automaton comes near the 65,536-state cap
+        # against its plain version at 64 MiB, exactly: every instance
+        # (shared 16-bit table, global 32-bit table, the wide table that
+        # reads emit[] for counts past 16 bits; count and mask), with and
+        # without -i, on bench.py's 100-pattern set (every kind), on a set
+        # whose automaton comes near the 65,536-state cap (global, wide),
+        # and on a -f list of 65,600 copies of "the" beside the 100 (its
+        # count passes 65,535: the wide kind by default)
         from krep_tpu_torch.ops import ac
 
         t0 = time.perf_counter()
         cap_pats = near_cap_set(text)
-        dfa_tables = {}  # (set, case) -> (table, emit, maxlen) on the card
-        for label, pats in (("variant_set(100)", variant_set(100)), ("near the cap", cap_pats)):
+        dup_pats = (b"the",) * 65_600 + variant_set(100)
+        dfa_tables = {}  # (set, case) -> (table, emit, maxlen, {kind: packed}) on the card
+        for label, pats, kinds in (("variant_set(100)", variant_set(100), ac.TABLE_KINDS),
+                                   ("near the cap", cap_pats, ("global", "wide")),
+                                   ("65,600 duplicates", dup_pats, ("wide",))):
             for cs in (True, False):
-                if label == "near the cap" and not cs:
-                    # lower-case members: the -i automaton is the same one
-                    dfa_tables[(label, cs)] = dfa_tables[(label, True)]
-                    continue
-                built = ac.build_dense_ac(list(pats), cs)
+                if label != "near the cap" or cs:  # lower-case members: one automaton for -i
+                    built = ac.build_dense_ac(list(pats), cs)
                 check(built is not None, f"{label}: the automaton is over the cap")
-                dfa_tables[(label, cs)] = (*(torch.from_numpy(a).to(dev) for a in built),
-                                           max(map(len, pats)))
+                check(ac.pack_dense_table(*built, cs).kind == kinds[0],
+                      f"{label}: the default table kind is not {kinds[0]}")
+                dfa_tables[(label, cs)] = (
+                    *(torch.from_numpy(a).to(dev) for a in built), max(map(len, pats)),
+                    {k: ac.pack_dense_table(*built, cs, k).to(dev) for k in kinds})
         states = {k: int(v[0].shape[0]) for k, v in dfa_tables.items()}
-        say(f"dense automata built in {time.perf_counter() - t0:.1f} s: states {states}")
+        say(f"dense automata built and packed in {time.perf_counter() - t0:.1f} s: states {states}; "
+            f"largest count {int(dfa_tables[('65,600 duplicates', True)][1].max())}")
         check(states[("near the cap", True)] > 60_000, "the near-cap automaton is small")
+        check(states[("variant_set(100)", True)] <= ac.SHARED_MAX_STATES,
+              "the 100-pattern automaton does not fit the shared table")
         max_err.update({"dfa_scan": 0, "dfa_scan mask": 0})
         st = dispatch.stage(text, dev)
+        n_dfa = 0
         for (label, cs), tables in dfa_tables.items():
             got = dfa_vs_plain(st, max_err, tables, case_sensitive=cs)
-            say(f"dfa_scan vs plain at 64 MiB: {label} cs={cs}: [emissions, flagged ends] {got}")
+            n_dfa += 2 * len(tables[3])
+            say(f"dfa_scan vs plain at 64 MiB: {label} cs={cs} ({'/'.join(tables[3])}): "
+                f"[emissions, flagged ends] {got}")
             check(got[0] > 0, f"dfa_scan: {label} found nothing")
         torch.cuda.synchronize()
         check(max_err["dfa_scan"] == 0 and max_err["dfa_scan mask"] == 0,
               f"dfa_scan != plain: {max_err}")
-        say("dfa_scan vs plain at 64 MiB: 8 cases (count and mask instances), all exact")
+        say(f"dfa_scan vs plain at 64 MiB: {n_dfa} cases (every kind's count and mask "
+            f"instances), all exact")
         del st
 
+        phase("4")
         # 4. main path through the CLI, held to the native host route.
         # First the 1 GiB bucket's pinned host buffer, cold (the first in the
         # process at that size) and warm (from the caching host allocator),
@@ -1246,6 +1379,7 @@ def main() -> int:
         check(all(launches[k] > 0 for k in launches if k != "combine_blocks"),
               f"a kernel never launched: {launches}")
 
+        phase("4+")
         # 4+. the multi-pattern main path through the CLI: on 64 MiB held to
         # the native host route, on 1 GiB to single-pattern identities below
         def pattern_file(name, pats):
@@ -1286,23 +1420,41 @@ def main() -> int:
         check(all(mlaunches[k] > 0 for k in mlaunches if k != "combine_blocks"),
               f"a kernel never launched: {mlaunches}")
 
+        phase("4d")
         # 4d. KREP_TPU_DFA=1: sets of more than 64 patterns through the
         # dense DFA (ops/ac.py), on 16 MiB byte-identical to the native
         # host route (16 MiB x 100 patterns keeps krep_tpu on that route)
+        # the trees of phase 4r, written while phase 4d runs (its runs wait
+        # on the host attribution; no phase before it shares the host)
+        tree = os.path.join(workdir, "tree")
+        c5 = os.path.join(workdir, "config5_tree")
+
+        def write_trees():
+            os.makedirs(tree)
+            info = gen_tree(tree, 400, 50, 8)
+            os.makedirs(c5)
+            gen_config5_tree(c5)
+            return info
+
+        trees_written = in_background(write_trees)
         d_runs = [["-c", "-o", "-f", f100, mid], ["-c", "-f", f100, mid],
                   ["-m", "1000", "-o", "-f", f100, mid], ["-w", "-c", "-o", "-f", f100, mid]]
         d_refs = reference_clis(d_runs)
         with env_set("KREP_TPU_DFA", "1"):
             reset_launches()
             d_outs = [port_cli(args) for args in d_runs]
-            dlaunches = read_launches("dfa_scan", "dfa_scan mask")
+            dlaunches = read_launches("dfa_scan", "dfa_scan mask",
+                                      *(f"dfa_scan {k}" for k in ac.TABLE_KINDS))
         for args, got, ref in zip(d_runs, d_outs, d_refs):
             check_identical(args, MIB16, got, ref)
         say(f"launches under KREP_TPU_DFA=1: {dlaunches}")
         check(dlaunches["dfa_scan"] > 0 and dlaunches["dfa_scan mask"] > 0,
               f"the dense-DFA kernel never launched: {dlaunches}")
+        check(dlaunches["dfa_scan shared"] == dlaunches["dfa_scan"] + dlaunches["dfa_scan mask"],
+              f"the 100-pattern set left the shared table: {dlaunches}")
         del d_outs
 
+        phase("4r")
         # 4r. recursive search through the walker and the batched scan, on
         # a config-5 tree scaled up and on the config-5 tree itself, held to
         # the native host route of krep_tpu.cli
@@ -1310,16 +1462,13 @@ def main() -> int:
         from krep_tpu_torch.io import walker
 
         t0 = time.perf_counter()
-        tree = os.path.join(workdir, "tree")
-        os.makedirs(tree)
-        tree_info = gen_tree(tree, 400, 50, 8)
+        tree_info, trees_s = trees_written()
         part0 = os.path.join(tree, "part0")
-        c5 = os.path.join(workdir, "config5_tree")
-        os.makedirs(c5)
-        gen_config5_tree(c5)
         say(f"trees: {tree_info['files']} files ({tree_info['bytes']} bytes) in 400 directories "
             f"(part0: {tree_info['part0_files']} files, {tree_info['part0_bytes']} bytes in 50), "
-            f"and the config-5 tree, written in {time.perf_counter() - t0:.1f} s")
+            f"and the config-5 tree, written in {trees_s:.1f} s in the background (waited "
+            f"{time.perf_counter() - t0:.1f} s)")
+
         # the counting modes run on the whole tree; the modes that print
         # every match and the multi-pattern run (every file solo) run on
         # part0, since they reach no kernel that the counting modes and
@@ -1441,11 +1590,17 @@ def main() -> int:
         say(f"launches during -r --gitignore -c: {first_rc}; during the solo -r -c -e: "
             f"{solo_rce}")
         check(all(v > 0 for v in first_rc.values()), f"-r -c did not run first_line: {first_rc}")
+        # one launch a batch: the scan finishes its first_line mask in its tail
+        check(first_rc["scan_blocks first_line"] == len(r_batches[0]),
+              f"-r -c: {first_rc} for {len(r_batches[0])} batches")
+        say(f"-r --gitignore -c: {len(r_batches[0])} batches, {first_rc['scan_blocks first_line']} "
+            f"first_line launches, each finishing its mask in its tail (no fix-up launch)")
         check(solo_rce["scan_blocks_multi"] > 0, f"-r -c -e never launched: {solo_rce}")
         check_tail(solo_rce, "the solo -r -c -e")
         launches.update(first_rc)
         del r_outs, c5_outs
 
+        phase("4e")
         # 4e. regex (-E): the literal-factor prefilter on the card, glibc on
         # the candidate lines. On 1 GiB of bench.py's config-4 corpus a
         # one-factor ERE (the K=1 word scan) and a two-factor one (the
@@ -1509,6 +1664,7 @@ def main() -> int:
         check_tail(elaunches, "-E")
         del e_outs, e_refs
 
+        phase("4v")
         # 4v. KREP_TPU_BACKEND=pallas: the byte scan on the single-array
         # route, the prefix filter and the -r position and -c -o batches,
         # each run byte-identical to the native host route
@@ -1536,6 +1692,7 @@ def main() -> int:
         launches.update({k: vlaunches[k] for k in ("scan_bytes", "scan_bytes mask")})
         del v_outs, r_refs
 
+        phase("4b")
         # 4b. the cost-attribution tool, as a user runs it
         # (python -m krep_tpu_torch.tools.bench_kernel, 256 MiB of a-z)
         from krep_tpu_torch.tools import bench_kernel
@@ -1551,6 +1708,7 @@ def main() -> int:
               f"a variant or the combine of its rows never launched: {blaunches}")
         launches.update({k: n for k, n in blaunches.items() if k != "combine_blocks"})
 
+        phase("4h")
         # 4h. KREP_TPU_MXU_LINES=inkernel: multi-pattern -c counts its lines in
         # the Hamming kernel; each count equal to the default (chained)
         # route's, and on 16 MiB byte-identical to the native host route
@@ -1576,6 +1734,7 @@ def main() -> int:
         launches.update({k: hlaunches[k] for k in ("hamming_scan lines", "combine_blocks")})
         del h_outs, h_default
 
+        phase("4m")
         # 4m. the sharded route (parallel/mesh.py) through the port's own
         # entry points, search_string and the CLI, on this card named four
         # times: mesh.devices answers (cuda:0,) * k, as the tests fake a
@@ -1712,6 +1871,7 @@ def main() -> int:
             say("real mesh: this machine has one card; only the repeated mesh ran")
         del corpus, singles
 
+        phase("5")
         # 5. kernels vs plain at the main path's shapes, then timed at the
         # 1 GiB `-c the` shape
         corpus = np.memmap(big, dtype=np.uint8, mode="r")
@@ -1874,6 +2034,7 @@ def main() -> int:
                 f"{len(pats)} passes) {want} | equal={got == want} [{card}]")
             check(rc == 0 and got == want, f"multi-pattern {kind} identity fails for {label_of(args)}")
 
+        phase("5+")
         # 5+. the multi-pattern kernels at 1 GiB: exact against plain, then timed
         for route, pats in (("fused", pats16), ("fused", pats64), ("hamming", pats64),
                             ("hamming", pats_mixed)):
@@ -1972,6 +2133,7 @@ def main() -> int:
             f"({mixed_bound[1]}); torch._int_mm of G1 and G2 against the window bits of "
             f"1 GiB: {mixed_lib} ms [{card}]")
 
+        phase("4s")
         # 4s. the bench's strict count (bench.py:397, :439, :468):
         # multi.fused_count_device(staged, pats, True, ww, strict=True) on the
         # 1 GiB staging and on with_len(n - j) views of it, whose bytes past
@@ -1996,6 +2158,7 @@ def main() -> int:
         check(slaunches["hamming_scan strict"] == 12, f"strict launches: {slaunches}")
         launches.update(slaunches)
 
+        phase("5v")
         # 5v. the byte scan (both instances) and its variants at the 1 GiB
         # `-c the` shape: exact against plain, then timed
         for want_mask in (False, True):
@@ -2084,6 +2247,7 @@ def main() -> int:
               f"byte scan != plain at 1 GiB for long patterns: {max_err}")
         timing.update(vtiming)
 
+        phase("5h")
         # 5h. the Hamming kernel's line and strict modes at 1 GiB: exact
         # against plain, then timed beside the chained pair (the mask
         # instance + lines_blocks), the count instance (re-timed) and
@@ -2128,15 +2292,17 @@ def main() -> int:
         del view
         del st, umask
 
+        phase("5r")
         # 5r. the first_line kernels at the batch shapes: the walker's full
         # batch (files of the tree in walk order until Batch.full, as the
         # walker flushes it: past 64 MiB, so the 1,536-block bucket, about a
         # third of it zero padding past true_len), the shape of the main
-        # path's batches, and the largest batch that fits 64 MiB (1,024
-        # blocks); exact against plain, then timed. The scan kernel (with
-        # its tail) is timed without the fix-up through its library entry
-        # (swar.scan_blocks launches the fix-up after it), and its output is
-        # held to the wrapper's
+        # path's batches, the largest batch that fits 64 MiB (1,024 blocks),
+        # and the first 1,000 blocks of the full batch (a last group of 40
+        # blocks); exact against plain, then timed. The fix-up step is
+        # timed as the tail is: the launch with it minus the same
+        # launch without it (block-by-block flags), both through the
+        # library entry, in turns
         full_b = batch_mod.Batch()
         for path, size in walker._walk(tree, False, None, [0]):
             if size > batch_mod.BATCH_FILE_MAX:
@@ -2150,67 +2316,72 @@ def main() -> int:
             if small_b.size + e.size + 4 + batch_mod.GAP > MIB64:
                 break
             small_b.add(e.path, data)
-        lib = _build.library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
         for label, b, want_blocks in (("walker's full batch", full_b, 1536),
-                                      ("64 MiB batch", small_b, 1024)):
-            st = dispatch.stage(b.buffer(), dev)
+                                      ("64 MiB batch", small_b, 1024),
+                                      ("1,000-block batch", full_b, 1000)):
+            if want_blocks == 1000:  # not a staging bucket: the flat text and its zero halo
+                raw = np.zeros(1000 * 65536 + dispatch.HALO_BYTES, np.uint8)
+                raw[: 1000 * 65536] = np.frombuffer(b.buffer(), np.uint8)[: 1000 * 65536]
+                st = types.SimpleNamespace(u8=torch.from_numpy(raw).to(dev),
+                                           true_len=1000 * 65536, n_blocks=1000)
+            else:
+                st = dispatch.stage(b.buffer(), dev)
             check(st.n_blocks == want_blocks, f"{label}: bucket of {st.n_blocks} blocks")
             kw = dict(pattern=b"the", want_mask=True, mask_kind="first_line")
-            stats, mask, totals = first_line_vs_plain(st, pattern=b"the")
+            stats, mask, totals, blockwise = first_line_vs_plain(st, pattern=b"the")
             check(max_err["scan_blocks first_line"] == 0 and max_err["first_line_fixup"] == 0,
                   f"first_line kernel != plain at the {label} shape: {max_err}")
-            blockwise = mask.clone()
-            blockwise[stats[:, 5][stats[:, 5] >= 0].long()] = 1
             cleared = int((blockwise != mask).sum())
             work = blockwise.clone()
-            s_stats = torch.empty_like(stats)
-            s_mask = torch.empty_like(mask)
-            s_totals = torch.empty_like(totals)
-            scratch = swar.tail_scratch(dev, stream)
-
-            def scan_only():
-                err = lib.krep_scan_blocks(
-                    st.u8.data_ptr(), st.n_blocks, b"the", 3, 0, 0, int(st.true_len), 0,
-                    swar.NO_LIMIT, 1, s_mask.data_ptr(), s_stats.data_ptr(), s_totals.data_ptr(),
-                    scratch.data_ptr(), stream)
-                check(err == 0, f"krep_scan_blocks: CUDA error {err}")
-
-            scan_only()
-            check(torch.equal(s_stats, stats) and torch.equal(s_mask, blockwise)
-                  and torch.equal(s_totals, totals),
-                  f"{label}: the scan kernel alone differs from the wrapper's scan")
+            outs = {mode: tuple(torch.empty_like(x) for x in (stats, mask, totals))
+                    for mode in (1, 2)}
+            for mode, want in ((1, mask), (2, blockwise)):
+                got = first_line_raw(st.u8, st.true_len, st.n_blocks, mode, out=outs[mode], **kw)
+                check(torch.equal(got[0], stats) and torch.equal(got[1], want)
+                      and torch.equal(got[2], totals),
+                      f"{label}: the library launch (first_line={mode}) differs from the wrapper's")
+            turns = [cuda_ms(lambda: first_line_raw(st.u8, st.true_len, st.n_blocks, mode,
+                                                    out=outs[mode], **kw), 200)
+                     for mode in (1, 2, 2, 1)]
+            with_ms, without_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
             shape_ms = {
                 "scan_blocks first_line": (
-                    cuda_ms(scan_only, 20),
+                    with_ms,
                     cuda_ms(lambda: literal.block_stats(st.u8, st.true_len, st.n_blocks, **kw), 3),
                 ),
                 "first_line_fixup": (
-                    cuda_ms(lambda: swar.first_line_fixup(stats, work), 200),
+                    with_ms - without_ms,
                     cuda_ms(lambda: lines.first_line_fixup(stats, work), 20),
                 ),
             }
-            both_ms = cuda_ms(lambda: swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw), 20)
+            wrapper_ms = cuda_ms(lambda: swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw),
+                                 20)
             sbody = st.n_blocks * 65536
             shape_bounds = {
                 "scan_blocks first_line": bound(2 * sbody + 64 + 32 * st.n_blocks),
                 "first_line_fixup": bound(32 * st.n_blocks + cleared),
             }
-            edges = torch.tensor([(e.offset, e.offset + e.size) for e in b.entries], device=dev)
-            counts_ms = cuda_ms(
-                lambda: batch_mod._file_counts_dev(mask, edges[:, 0], edges[:, 1]), 20)
-            say(f"{label}: {len(b.entries)} files, {b.size} bytes, {st.n_blocks} blocks; "
-                f"{int(mask.sum())} first-in-line flags, {cleared} cleared by the fix-up; exact")
+            say(f"{label}: {st.n_blocks} blocks, {st.true_len} bytes; {int(mask.sum())} "
+                f"first-in-line flags, {cleared} cleared by the tail's fix-up; exact")
             for name, (k_ms, p_ms) in shape_ms.items():
                 say(f"timing {label}: {name} kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                     f"bound {shape_bounds[name][0]:.4f} ms ({shape_bounds[name][1]}) [{card}]")
-            say(f"timing {label}: swar.scan_blocks(first_line), scan + fix-up, {both_ms:.4f} ms; "
-                f"per-file counts (_file_counts_dev, a torch cumsum) {counts_ms:.4f} ms [{card}]")
+            say(f"timing {label}: the launch with the fix-up step {with_ms:.4f} ms, without it "
+                f"{without_ms:.4f} ms (turns {[round(t, 4) for t in turns]}); "
+                f"swar.scan_blocks(first_line), one launch, {wrapper_ms:.4f} ms [{card}]")
+            if want_blocks != 1000:
+                edges = torch.tensor([(e.offset, e.offset + e.size) for e in b.entries],
+                                     device=dev)
+                counts_ms = cuda_ms(
+                    lambda: batch_mod._file_counts_dev(mask, edges[:, 0], edges[:, 1]), 20)
+                say(f"timing {label}: {len(b.entries)} files; per-file counts "
+                    f"(_file_counts_dev, a torch cumsum) {counts_ms:.4f} ms [{card}]")
             if want_blocks == 1536:  # the main path's shape goes into the kernels line
                 timing.update(shape_ms)
                 bounds.update(shape_bounds)
-            del st, stats, mask, blockwise, work, s_stats, s_mask, s_totals, totals
+            del st, stats, mask, blockwise, work, outs, totals
 
+        phase("5m")
         # 5m. both shard modes at the main path's shard shape: shard 1 of the
         # 1 GiB corpus on 4 shards (S = 256 MiB: 4,096 blocks + the halo,
         # the byte before it a word byte or not), against the plain
@@ -2266,17 +2437,21 @@ def main() -> int:
         bounds.update(shard_bounds)
         del sh, corpus
 
-        # 5d. the dense-DFA kernel at 1 GiB: exact against plain (count and
-        # mask, with and without -i, both sets), then timed with CUDA events
-        # beside its bound and its plain time at 16 MiB (the 4d main path's
-        # shape), 64 MiB and 1 GiB. The bound counts the text, the table,
-        # the emission counts and (mask) the body's flags once each; the
-        # walk itself is a chain of span + halo dependent loads per thread
+        phase("5d")
+        # 5d. the dense-DFA kernel at 1 GiB: every instance exact against
+        # plain (the three sets, -i), then timed with CUDA events beside its
+        # bound and its plain time at 16 MiB (the 4d main path's shape),
+        # 64 MiB and 1 GiB: each kind of the 100-pattern set at each size,
+        # -i, the near-cap set and the duplicates at 1 GiB. The bound counts
+        # the text, the packed table (and emit[] for the wide kind) and
+        # (mask) the body's flags once each. Then the span: the default
+        # kind's count at spans of 16 B to 4 KiB at 16 MiB and 1 GiB
         corpus = np.memmap(big, dtype=np.uint8, mode="r")
         st = dispatch.stage(corpus, dev)
-        for (label, cs), tables in dfa_tables.items():
-            got = dfa_vs_plain(st, max_err, tables, case_sensitive=cs)
-            say(f"dfa_scan vs plain at 1 GiB: {label} cs={cs}: [emissions, flagged ends] {got}")
+        for (label, cs), tables in dfa_tables.items():  # 2^20 lanes: the plain walk's 1,024 steps
+            got = dfa_vs_plain(st, max_err, tables, case_sensitive=cs, n_lanes=1 << 20)
+            say(f"dfa_scan vs plain at 1 GiB: {label} cs={cs} ({'/'.join(tables[3])}): "
+                f"[emissions, flagged ends] {got}")
         torch.cuda.synchronize()
         check(max_err["dfa_scan"] == 0 and max_err["dfa_scan mask"] == 0,
               f"dfa_scan != plain at 1 GiB: {max_err}")
@@ -2284,29 +2459,55 @@ def main() -> int:
         for size in (MIB16, MIB64, GIB):
             st = dispatch.stage(corpus[:size], dev)
             body = st.n_blocks * 65536
-            span = ac.lane_span(body)
-            for (label, cs), (table, emit, maxlen) in dfa_tables.items():
-                if size != GIB and label != "variant_set(100)":
+            dmask = torch.empty(body, dtype=torch.uint8, device=dev)
+            dtotal = torch.zeros(1, dtype=torch.int64, device=dev)
+            for (label, cs), (table, emit, maxlen, packs) in dfa_tables.items():
+                if size != GIB and (label, cs) != ("variant_set(100)", True):
                     continue
                 kw = dict(maxlen=maxlen, case_sensitive=cs)
-                tbytes = table.numel() * 4 + emit.numel() * 4
                 for want_mask in (False, True):
-                    k_ms = cuda_ms(lambda: ac.dfa_walk(st.u8, st.true_len, st.n_blocks, table, emit,
-                                                       want_mask=want_mask, **kw), 5)
-                    p_ms = cuda_ms(lambda: ac.dfa_walk_plain(
-                        st.u8, st.true_len, st.n_blocks, table, emit, want_mask=want_mask,
-                        n_lanes=1 << 16, **kw), 1)
-                    b = bound(st.true_len + tbytes + (body if want_mask else 0))
                     name = "dfa_scan mask" if want_mask else "dfa_scan"
-                    steps = span + maxlen - 1
-                    say(f"timing {size >> 20} MiB: {name} {label} cs={cs} ({table.shape[0]} states, "
-                        f"span {span}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                        f"{b[0]:.4f} ms ({b[1]}); {steps} dependent steps per thread, "
-                        f"{1e6 * k_ms / steps:.2f} ns per step [{card}]")
-                    if size == MIB16 and cs:  # the 4d main path's shape: the kernels line
-                        timing[name] = (k_ms, p_ms)
-                        bounds[name] = b
-            del st
+                    out = dmask if want_mask else None
+                    p_ms = None  # the plain walk timed on the 100 patterns alone
+                    if (label, cs) == ("variant_set(100)", True):
+                        p_ms = cuda_ms(lambda: ac.dfa_walk_plain(
+                            st.u8, st.true_len, st.n_blocks, table, emit, want_mask=want_mask,
+                            n_lanes=1 << 16, **kw), 1, warm=size != GIB)
+                    for kind, packed in packs.items():
+                        reps = 100 if size == MIB16 else 20
+                        tbytes = packed.entries.numel() * packed.entries.element_size()
+                        span = ac.lane_span(body, maxlen - 1, ac.resident_threads(
+                            dev.index, kind, want_mask, tbytes))
+                        k_ms = cuda_ms(lambda: dfa_raw(st, packed, maxlen, span, out, dtotal),
+                                       reps)
+                        w_ms = cuda_ms(lambda: ac.dfa_walk(
+                            st.u8, st.true_len, st.n_blocks, table, emit, want_mask=want_mask,
+                            packed=packed, **kw), reps)
+                        b = bound(st.true_len + tbytes + (body if want_mask else 0)
+                                  + (packed.emit.numel() * 4 if kind == "wide" else 0))
+                        plain = "not timed" if p_ms is None else f"{p_ms:.4f} ms"
+                        say(f"timing {size >> 20} MiB: {name} {label} cs={cs} {kind} "
+                            f"({packed.states} states, span {span}, "
+                            f"{-(-body // span)} threads): kernel {k_ms:.4f} ms (ac.dfa_walk, "
+                            f"its host work included: {w_ms:.4f}), plain {plain}, bound "
+                            f"{b[0]:.4f} ms ({b[1]}) [{card}]")
+                        if size == MIB16 and kind == "shared":  # the 4d main path: kernels line
+                            timing[name] = (k_ms, p_ms)
+                            bounds[name] = b
+            for label, kind in (("variant_set(100)", "shared"), ("near the cap", "global")):
+                if size == MIB64:
+                    continue
+                table, emit, maxlen, packs = dfa_tables[(label, True)]
+                packed = packs[kind]
+                default = ac.lane_span(body, maxlen - 1, ac.resident_threads(
+                    dev.index, kind, False, packed.entries.numel() * packed.entries.element_size()))
+                spans = sorted({16, 32, 64, 128, 256, 512, 1024, 4096, default}
+                               - ({16, 32} if label == "near the cap" else set()))
+                got = [round(cuda_ms(lambda: dfa_raw(st, packed, maxlen, span, None, dtotal),
+                                     20), 4) for span in spans]
+                say(f"timing {size >> 20} MiB: dfa_scan {label} {kind} count by span "
+                    f"{dict(zip(spans, got))} ms (the default span {default}) [{card}]")
+            del st, dmask, dtotal
         launches.update(dlaunches)
         del corpus
     finally:
@@ -2320,7 +2521,7 @@ def main() -> int:
         "combine_blocks": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
         TAIL: ("scan_common.cuh", "krep_tpu/ops/pallas_swar.py:396"),
         "scan_blocks first_line": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
-        "first_line_fixup": ("swar_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
+        "first_line_fixup": ("scan_common.cuh", "krep_tpu/ops/pallas_swar.py:396"),
         "scan_blocks_multi": ("multi_scan.cu", "krep_tpu/ops/pallas_swar.py:396"),
         "lines_blocks": ("lines_scan.cu", "krep_tpu/ops/pallas_swar.py:1011"),
         "hamming_scan": ("hamming_scan.cu", "krep_tpu/ops/mxu_multi.py:209"),

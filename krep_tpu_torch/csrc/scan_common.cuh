@@ -3,7 +3,8 @@
 // line-accounting summary and its ordered fold (byte by byte, or 32
 // positions at a time from bit words), the ASCII fold, the word-byte test,
 // the coalesced store of a start bitmap as a 0/1 byte mask, the fold of a
-// launch's block summaries by its own last blocks (finish_blocks), the line
+// launch's block summaries by its own last blocks (finish_blocks, with the
+// first-line fix-up of clear_entering_leads), the line
 // fold of a warp's stride from its hit and newline bit words
 // (fold_lines16, which the word scan and the lines kernel share), and the
 // word scan of one pattern that swar_scan.cu and byte_scan.cu both run
@@ -26,7 +27,10 @@
 // fault inside a launch leaves a sticky context error, so no later launch
 // can read a counter that was left half counted. A block with nothing to
 // scan (past start_limit) still writes its row and draws its ticket, or
-// its group would never fold.
+// its group would never fold. In the first_line instances the block that
+// folds the totals also finishes the first-line mask across blocks
+// (clear_entering_leads), which replaces a second launch too
+// (first_line_fixup: 0.0214 ms at 1,536 rows on an H100, PERF.md).
 
 #pragma once
 
@@ -266,6 +270,77 @@ __device__ __forceinline__ int ticket(int* counter) {
   return old;
 }
 
+// The line state across a block row (whether the line open after it has a
+// match), as a map of the state entering it: s -> has_nl ? trail : (s |
+// trail), two bits: kPass (no newline: s passes) and kSet (trail). kPass
+// alone is the identity; maps compose in text order (map_then).
+constexpr uint32_t kPass = 1u, kSet = 2u;
+
+__device__ __forceinline__ uint32_t row_map(const int* r) {
+  return (__ldcg(r + 4) ? 0u : kPass) | (__ldcg(r + 2) ? kSet : 0u);  // words 4, 2 (L2)
+}
+
+// x, then y: passes where both pass; sets where x sets and y passes, or y sets.
+__device__ __forceinline__ uint32_t map_then(uint32_t x, uint32_t y) {
+  return (x & (y | (y << 1)) & 3u) | (y & kSet);
+}
+
+__device__ __forceinline__ uint32_t map_apply(uint32_t m, uint32_t s) {
+  return ((s & m) | (m >> 1)) & 1u;
+}
+
+// Inclusive (returned) and exclusive (`ex`) scans of the lanes' maps in lane order.
+__device__ __forceinline__ uint32_t warp_scan_maps(uint32_t v, uint32_t& ex) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t u = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v = map_then(u, v);
+  }
+  ex = __shfl_up_sync(0xffffffffu, v, 1);
+  if (lane == 0) ex = kPass;
+  return v;
+}
+
+// The first-line fix-up, run by the launch's last block once every block
+// row and group row is in (finish_blocks): clears the lead flag (the byte
+// at text offset stats word 5, -1 if none) of each block whose entering
+// line already has a match, as lines.first_line_fixup does. Each block's
+// entering state is an exclusive scan of the row maps: first over the group
+// rows (two groups a thread, ngroups <= kMaxTailGroups), then each warp
+// takes whole groups, two rows a lane, and scans them from its group's
+// entering state. Every thread of the block calls it.
+__device__ __forceinline__ void clear_entering_leads(const int* stats, int n,
+                                                     const int* group_rows, int ngroups,
+                                                     uint8_t* mask) {
+  __shared__ uint32_t warp_maps[kThreads / 32];
+  __shared__ uint8_t group_in[kMaxTailGroups];  // the line entering group g has a match
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const uint32_t g0 = 2 * t < ngroups ? row_map(group_rows + 2 * t * kStatWords) : kPass;
+  const uint32_t g1 = 2 * t + 1 < ngroups ? row_map(group_rows + (2 * t + 1) * kStatWords) : kPass;
+  uint32_t ex;
+  const uint32_t inc = warp_scan_maps(map_then(g0, g1), ex);
+  if (lane == 31) warp_maps[warp] = inc;
+  __syncthreads();
+  uint32_t pre = kPass;
+  for (int w = 0; w < warp; ++w) pre = map_then(pre, warp_maps[w]);
+  const uint32_t s0 = map_apply(map_then(pre, ex), 0u);
+  if (2 * t < ngroups) group_in[2 * t] = uint8_t(s0);
+  if (2 * t + 1 < ngroups) group_in[2 * t + 1] = uint8_t(map_apply(g0, s0));
+  __syncthreads();
+  for (int g = warp; g < ngroups; g += kThreads / 32) {
+    const int r0 = g * kGroupBlocks + 2 * lane;
+    const uint32_t x0 = r0 < n ? row_map(stats + r0 * kStatWords) : kPass;
+    const uint32_t x1 = r0 + 1 < n ? row_map(stats + (r0 + 1) * kStatWords) : kPass;
+    const int lead0 = r0 < n ? __ldcg(stats + r0 * kStatWords + 5) : -1;  // loaded beside the maps
+    const int lead1 = r0 + 1 < n ? __ldcg(stats + (r0 + 1) * kStatWords + 5) : -1;
+    warp_scan_maps(map_then(x0, x1), ex);
+    const uint32_t s = map_apply(ex, group_in[g]);
+    if (s && lead0 >= 0) mask[lead0] = 0;
+    if (map_apply(x0, s) && lead1 >= 0) mask[lead1] = 0;
+  }
+}
+
 // The end of every summary-writing launch: every thread of every block
 // calls it once the block's thread 0 has written the block's row (stats +
 // blockIdx.x * kStatWords). Two levels of tickets: the block that finishes
@@ -284,9 +359,25 @@ __device__ __forceinline__ int ticket(int* counter) {
 // `warp_sums`: kThreads / 32 summaries of shared memory that the block no
 // longer reads. kCall: fold through a call (fold_rows_call: the word scans
 // and the lines kernel), else inline (the K-pattern scan).
-template <bool kCall = true>
+//
+// kLeads (the first_line instances of swar_scan.cu): with `fix_mask` set,
+// the block that folds the totals then finishes the first-line mask
+// (clear_entering_leads), so no second launch is needed. The byte it
+// clears was written as 1 by another block, by any of its threads (the
+// lane whose 16 bytes hold the lead), so the clear must be ordered after
+// that store: in kLeads every block passes a barrier before its thread 0
+// draws the group ticket, so the release of that atom.acq_rel.gpu covers
+// the stores of every thread of the block (the barrier orders them before
+// it at block scope, and release is cumulative); the group's finisher
+// acquires them with its ticket, releases them again with its ticket on
+// the launch counter, and the last block acquires that and passes a
+// barrier before any of its threads clears a byte. The block's own clears
+// inside the block (word_scan_block, after its barrier) touch other bytes
+// (the leads of later warps), and the lead of a block is never cleared
+// there.
+template <bool kCall = true, bool kLeads = false>
 __device__ __forceinline__ void finish_blocks(const int* stats, int* totals, int* scratch,
-                                              Summary* warp_sums) {
+                                              Summary* warp_sums, uint8_t* fix_mask = nullptr) {
   __shared__ int last;
   if (!totals) return;
   const int t = threadIdx.x, n = gridDim.x;
@@ -295,6 +386,7 @@ __device__ __forceinline__ void finish_blocks(const int* stats, int* totals, int
   int* group_rows = scratch;
   int* group_count = scratch + kTailCounters;
   int* groups_done = group_count + kMaxTailGroups;
+  if constexpr (kLeads) __syncthreads();  // every thread's mask stores, before the release
   if (t == 0) last = ticket(group_count + g) == min(kGroupBlocks, n - g0) - 1;  // the row's writer
   __syncthreads();
   if (!last) return;
@@ -310,6 +402,9 @@ __device__ __forceinline__ void finish_blocks(const int* stats, int* totals, int
   if (t == 0) {
     write_row(totals, s, 0);
     *groups_done = 0;
+  }
+  if constexpr (kLeads) {
+    if (fix_mask) clear_entering_leads(stats, n, group_rows, ngroups, fix_mask);
   }
 }
 
@@ -341,8 +436,9 @@ constexpr unsigned kAll = 0xffffffffu;
 // as a filter and verifies the rest of each candidate (verify_long).
 enum LenClass { kLen4 = 0, kLen8 = 1, kLenLong = 2 };
 // What a scan writes beside its stats: no mask, every match start, or the
-// -c dedup flags (the first match of each line as if the block began on a
-// closed line; krep_first_line_fixup finishes them across blocks).
+// -c dedup flags (the first match of each line; each block makes them as if
+// it began on a closed line, and the launch's last block finishes them
+// across blocks: finish_blocks' kLeads).
 enum MaskKind { kNoMask = 0, kStartMask = 1, kFirstLineMask = 2 };
 
 __host__ __device__ constexpr int len_class(int m) {

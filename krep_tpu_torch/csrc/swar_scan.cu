@@ -64,9 +64,6 @@
 // mode, the byte scan's cost-attribution variants). The -w flag is a
 // direct read of the previous byte. The folded summary is the
 // matched-line count and, unchanged, the shard stats of the slab loop.
-// In first_line mode the tail folds the rows as the scan wrote them: the
-// fix-up after it edits only the mask, never a row, so the totals do not
-// wait for it.
 //
 // The -c dedup mask (mask kind first_line, the batched `-r -c` path of
 // krep_tpu/io/batch.py) is made exact in three steps, none relying on the
@@ -76,9 +73,13 @@
 // before its first newline: the only flag the entering state can change)
 // when an earlier warp of the block leaves a matched line open, read from
 // the warps' summaries in shared memory, and the block stores the offset of
-// its own lead flag in stats word 5 (-1 if none); first_line_fixup_kernel,
-// one thread per block, does the same across blocks from the block
-// summaries and clears at most one flag a block.
+// its own lead flag in stats word 5 (-1 if none); the launch's last block,
+// once the tail has every row, clears the lead flag of each block whose
+// entering line already has a match (scan_common.cuh finish_blocks' kLeads,
+// an exclusive scan of the rows' line-state maps; the rows and the totals
+// do not change). A second launch used to do that step (first_line_fixup,
+// one thread per block walking back over the rows: 0.0214 ms at the
+// 1,536-block batch, PERF.md).
 
 #include <string.h>
 
@@ -87,7 +88,6 @@
 namespace {
 
 constexpr int kCombineThreads = 1024;
-constexpr int kFixupThreads = 256;
 constexpr int kPatWords = kMaxPattern / 4 + 2;  // zero words past the longest pattern
 
 struct Pattern {
@@ -98,7 +98,8 @@ template <int kLen, bool kWord, int kMask>
 __global__ void __launch_bounds__(kThreads)
 scan_blocks_kernel(const uint8_t* __restrict__ text, Pattern pat, int m, int icase, int true_len,
                    int prev_word, int start_limit, uint8_t* __restrict__ mask,
-                   int* __restrict__ stats, int* __restrict__ totals, int* scratch) {
+                   int* __restrict__ stats, int* __restrict__ totals, int* scratch,
+                   uint8_t* fix_mask) {
   __shared__ WordScanShared<kPatWords> sh;
   if (threadIdx.x == 0) {  // constant indices: the argument stays in the constant bank
 #pragma unroll
@@ -107,27 +108,7 @@ scan_blocks_kernel(const uint8_t* __restrict__ text, Pattern pat, int m, int ica
   __syncthreads();
   word_scan_block<kLen, kWord, kMask, true>(
       WordScanArgs{text, m, icase, true_len, prev_word, start_limit, mask, stats}, sh);
-  finish_blocks(stats, totals, scratch, sh.warp_sums);
-}
-
-// One thread per block: clears the block's lead flag (stats word 5) when
-// the line open at the block's start already has a match in an earlier
-// block, found by walking back over the block summaries to the nearest
-// block with a trailing match or a newline.
-__global__ void __launch_bounds__(kFixupThreads)
-first_line_fixup_kernel(const int* __restrict__ stats, int nblocks, uint8_t* __restrict__ mask) {
-  const int b = blockIdx.x * kFixupThreads + threadIdx.x;
-  if (b >= nblocks) return;
-  const int lead = stats[b * kStatWords + 5];
-  if (lead < 0) return;
-  for (int u = b - 1; u >= 0; --u) {
-    const int* r = stats + u * kStatWords;
-    if (r[2]) {
-      mask[lead] = 0;
-      return;
-    }
-    if (r[4]) return;
-  }
+  finish_blocks<true, kMask == kFirstLineMask>(stats, totals, scratch, sh.warp_sums, fix_mask);
 }
 
 __global__ void __launch_bounds__(kCombineThreads)
@@ -160,7 +141,7 @@ combine_blocks_kernel(const int* __restrict__ stats, int nblocks, int* __restric
 
 
 using ScanKernel = void (*)(const uint8_t*, Pattern, int, int, int, int, int, uint8_t*, int*, int*,
-                           int*);
+                           int*, uint8_t*);
 
 #define KREP_SCAN(L, W)                                                             \
   scan_blocks_kernel<L, W, kNoMask>, scan_blocks_kernel<L, W, kStartMask>,          \
@@ -179,10 +160,11 @@ const ScanKernel kScanInstances[18] = {
 // zero halo covers the tail) and be 16-byte aligned; `pattern` holds m
 // bytes, already folded for -i; `mask` (nullable, 16-byte aligned) receives
 // one 0/1 byte per text byte, every match start, or with `first_line` the
-// first-in-line flags of each block as if it began on a closed line
-// (krep_first_line_fixup finishes them); `stats` receives 8 int32 per
-// block: count, first, trail, lead, has_nl, then with `first_line` the text
-// offset of the block's lead flag (-1 if none), else 0, then 0, 0.
+// first-in-line flags: `first_line` 1, finished across blocks by the tail
+// (which needs `totals`), or 2, each block's as if it began on a closed
+// line (the mask before that step, for its cost); `stats` receives 8 int32
+// per block: count, first, trail, lead, has_nl, then with `first_line` the
+// text offset of the block's lead flag (-1 if none), else 0, then 0, 0.
 // `totals` (nullable) receives the rows folded in text order, 8 int32:
 // count, matched lines, trail, lead, has_nl, 0, 0, 0, by the launch's last
 // block; `scratch` is krep_tail_words() int32 of device memory, zero,
@@ -192,8 +174,9 @@ extern "C" int krep_scan_blocks(const void* text, int nblocks, const unsigned ch
                                 int m, int icase, int wword, int true_len, int prev_word,
                                 int start_limit, int first_line, void* mask, void* stats,
                                 void* totals, void* scratch, void* stream) {
-  if (m < 1 || m > kMaxPattern || nblocks < 1) return int(cudaErrorInvalidValue);
-  if (first_line && !mask) return int(cudaErrorInvalidValue);
+  if (m < 1 || m > kMaxPattern || nblocks < 1 || first_line < 0 || first_line > 2)
+    return int(cudaErrorInvalidValue);
+  if (first_line && (!mask || (first_line == 1 && !totals))) return int(cudaErrorInvalidValue);
   if (!tail_ok(nblocks, totals, scratch)) return int(cudaErrorInvalidValue);
   Pattern p;
   memset(p.w, 0, sizeof(p.w));
@@ -203,23 +186,12 @@ extern "C" int krep_scan_blocks(const void* text, int nblocks, const unsigned ch
   kernel<<<nblocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(text), p, m, icase, true_len, prev_word, start_limit,
       static_cast<uint8_t*>(mask), static_cast<int*>(stats), static_cast<int*>(totals),
-      static_cast<int*>(scratch));
+      static_cast<int*>(scratch), first_line == 1 ? static_cast<uint8_t*>(mask) : nullptr);
   return int(cudaGetLastError());
 }
 
 // The int32 words of the scan tail's scratch (scan_common.cuh kTailWords).
 extern "C" int krep_tail_words() { return kTailWords; }
-
-// Finishes a first_line mask of krep_scan_blocks: clears the lead flag of
-// every block whose entering line already has a match, from the nblocks
-// stats rows that scan wrote. Returns the launch's cudaGetLastError().
-extern "C" int krep_first_line_fixup(const void* stats, int nblocks, void* mask, void* stream) {
-  if (nblocks < 1) return int(cudaErrorInvalidValue);
-  first_line_fixup_kernel<<<(nblocks + kFixupThreads - 1) / kFixupThreads, kFixupThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(stats), nblocks, static_cast<uint8_t*>(mask));
-  return int(cudaGetLastError());
-}
 
 // Folds nblocks block summaries in text order into 8 int32 at `out`:
 // count, matched lines, trail, lead, has_nl, 0, 0, 0. For the summaries of

@@ -115,8 +115,6 @@ def _load(path: Path) -> ctypes.CDLL:
     ]
     lib.krep_tail_words.restype = i
     lib.krep_tail_words.argtypes = []
-    lib.krep_first_line_fixup.restype = i
-    lib.krep_first_line_fixup.argtypes = [vp, i, vp, vp]
     lib.krep_combine_blocks.restype = i
     lib.krep_combine_blocks.argtypes = [vp, i, vp, vp]
     lib.krep_scan_blocks_multi.restype = i
@@ -131,5 +129,7 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.krep_byte_scan.restype = i
     lib.krep_byte_scan.argtypes = [vp, i, vp, i, i, i, i, i, vp, vp, vp, vp, vp]
     lib.krep_dfa_scan.restype = i
-    lib.krep_dfa_scan.argtypes = [vp, ll, ll, i, i, vp, vp, i, vp, vp, vp]
+    lib.krep_dfa_scan.argtypes = [vp, ll, ll, i, i, i, vp, ll, vp, ctypes.c_uint, vp, vp, vp]
+    lib.krep_dfa_resident_threads.restype = ll
+    lib.krep_dfa_resident_threads.argtypes = [i, i, ll]
     return lib

@@ -288,7 +288,7 @@ def block_stats(
     mask_kind: str = "starts",
 ):
     """Plain twin of the CUDA scan kernel (and, for mask_kind="first_line",
-    of its first-line fix-up): per-64 KiB-block summaries (n_blocks, 8)
+    of its in-launch first-line fix-up): per-64 KiB-block summaries (n_blocks, 8)
     int32 of [count, first, trail, lead, has_nl, 0, 0, 0], each computed as
     if its block began on a closed line (see parallel/lines.py), and the u8
     mask over the n_blocks * 64 KiB body (None unless want_mask): every

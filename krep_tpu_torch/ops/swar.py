@@ -1,15 +1,14 @@
 """Wrappers of the hand-written CUDA literal scans (csrc/*_scan.cu).
 
 Port of krep_tpu/ops/pallas_swar.py (`scan_literal`, `scan_shard`,
-`scan_multi`, `lines_from_mask`). Five kernels carry them:
+`scan_multi`, `lines_from_mask`). Four kernels carry them:
 
   scan_blocks        one CUDA block per 64 KiB of staged text: the match
                      test of one pattern, the 0/1 start mask (or the
-                     first-in-line mask of the -c dedup), and one
-                     line-accounting summary per block (the TPU kernel's
-                     sequential carries become these summaries);
-  first_line_fixup   one thread per block: finishes a first-in-line mask
-                     across block edges from the block summaries;
+                     first-in-line mask of the -c dedup, which the
+                     launch's last block finishes across block edges),
+                     and one line-accounting summary per block (the TPU
+                     kernel's sequential carries become these summaries);
   scan_blocks_multi  the same for up to 64 patterns in one pass: the summed
                      match count, and the union mask and line state, with
                      the shard stats of `scan_shard_multi` (start_limit,
@@ -31,15 +30,16 @@ counting its blocks in a scratch that `tail_scratch` keeps, one per
 
 On a CUDA tensor each wrapper launches its kernel or raises. On a CPU
 tensor it runs the kernel's plain PyTorch version (literal.block_stats,
-lines.first_line_fixup, literal.block_stats_multi,
+whose first_line mask is the finished one, as lines.first_line_fixup
+finishes block-by-block flags; literal.block_stats_multi,
 literal.lines_block_stats, lines.combine_block_stats, which also gives the
 totals). `LAUNCHES` (`MASK_LAUNCHES` of them with a start mask,
-`FIRST_LINE_LAUNCHES` with mask_kind="first_line", `SHARD_LAUNCHES` with a
-start_limit), `FIXUP_LAUNCHES`, `MULTI_LAUNCHES` (`MULTI_SHARD_LAUNCHES` of
-them in the shard mode), `LINES_LAUNCHES` and `COMBINE_LAUNCHES` count
-kernel launches, and `TAIL_FOLDS` the launches that folded their own
-totals (the byte scan's too), so a run can show that it went through the
-kernels.
+`FIRST_LINE_LAUNCHES` with mask_kind="first_line", each finishing its mask
+in its tail, `SHARD_LAUNCHES` with a start_limit), `MULTI_LAUNCHES`
+(`MULTI_SHARD_LAUNCHES` of them in the shard mode), `LINES_LAUNCHES` and
+`COMBINE_LAUNCHES` count kernel launches, and `TAIL_FOLDS` the launches
+that folded their own totals (the byte scan's too), so a run can show that
+it went through the kernels.
 """
 
 from __future__ import annotations
@@ -62,7 +62,6 @@ LAUNCHES = 0
 MASK_LAUNCHES = 0
 FIRST_LINE_LAUNCHES = 0
 SHARD_LAUNCHES = 0
-FIXUP_LAUNCHES = 0
 MULTI_LAUNCHES = 0
 MULTI_SHARD_LAUNCHES = 0
 LINES_LAUNCHES = 0
@@ -149,8 +148,8 @@ def scan_blocks(
     match of each line, the -c dedup events; word 5 then holds each block's
     lead-flag offset (see literal.block_stats). `text` is flat uint8 and
     holds at least TAIL_BYTES more bytes (the staged zero halo). On a CUDA
-    tensor the kernel's last block folds the totals; "first_line" launches
-    the fix-up kernel after the scan."""
+    tensor the kernel's last block folds the totals and, for "first_line",
+    finishes the mask across block edges, in the same launch."""
     m = len(pattern)
     if not 1 <= m <= MAX_PATTERN:
         raise ValueError(f"pattern length {m} outside 1..{MAX_PATTERN}")
@@ -192,38 +191,8 @@ def scan_blocks(
     TAIL_FOLDS += 1
     MASK_LAUNCHES += want_mask and not first_line
     SHARD_LAUNCHES += start_limit is not None
-    if first_line:
-        FIRST_LINE_LAUNCHES += 1
-        first_line_fixup(stats, mask)
+    FIRST_LINE_LAUNCHES += first_line
     return stats, mask, totals
-
-
-def first_line_fixup(stats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Finish a first_line mask of scan_blocks in place: clear the lead
-    flag of every block whose entering line already has a match in an
-    earlier block. `stats` are that scan's (n_blocks, 8) summaries, `mask`
-    its u8 mask over the n_blocks * 64 KiB body."""
-    if stats.dim() != 2 or stats.shape[1] != STAT_WORDS or stats.shape[0] < 1:
-        raise ValueError("stats must be (B, 8) with B >= 1")
-    if mask.dim() != 1 or mask.shape[0] < stats.shape[0] * BLOCK_BYTES or mask.device != stats.device:
-        raise ValueError("mask must be flat, on the stats' device, and cover the blocks")
-    if _device_kind(stats) == "cpu":
-        return lines.first_line_fixup(stats, mask)
-
-    from . import _build
-
-    _check_cuda(stats, torch.int32, "stats")
-    _check_cuda(mask, torch.uint8, "mask")
-    stream = torch.cuda.current_stream(stats.device).cuda_stream
-    with torch.cuda.device(stats.device):
-        err = _build.library().krep_first_line_fixup(
-            stats.data_ptr(), stats.shape[0], mask.data_ptr(), stream
-        )
-    if err:
-        raise RuntimeError(f"first_line_fixup kernel launch failed: CUDA error {err}")
-    global FIXUP_LAUNCHES
-    FIXUP_LAUNCHES += 1
-    return mask
 
 
 # Byte layout of the K-pattern kernel's tables (csrc/multi_scan.cu MultiTables).

@@ -8,8 +8,10 @@ exactly when the left run's open line has a match (trail) and the right
 run's leading segment has one (lead), so the merge subtracts one there.
 
 `combine_block_stats` and `first_line_fixup` are the plain twins of the
-CUDA combine and first-line fix-up kernels (csrc/swar_scan.cu), which use
-the scan kernel's per-block summaries with the same algebra.
+CUDA scan tail's fold and first-line fix-up (csrc/scan_common.cuh
+finish_blocks, at the end of the scan kernels' launches) and of the
+standalone combine kernel (csrc/swar_scan.cu), which use the scan kernel's
+per-block summaries with the same algebra.
 """
 
 from __future__ import annotations
@@ -82,11 +84,12 @@ def combine_block_stats(stats: torch.Tensor) -> torch.Tensor:
 
 
 def first_line_fixup(stats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Plain twin of the CUDA first-line fix-up kernel (csrc/swar_scan.cu):
-    in a u8 first-in-line mask made block by block as if each 64 KiB block
-    began on a closed line, clear the lead flag of every block (its text
-    offset in stats word 5, -1 if none) whose entering line already has a
-    match. Updates `mask` in place and returns it."""
+    """Plain twin of the scan tail's first-line fix-up (csrc/scan_common.cuh
+    clear_entering_leads): in a u8 first-in-line mask made block by block
+    as if each 64 KiB block began on a closed line, clear the lead flag of
+    every block (its text offset in stats word 5, -1 if none) whose
+    entering line already has a match. Updates `mask` in place and returns
+    it."""
     _, open_in = _open_lines(stats)
     lead = stats[:, 5].to(torch.int64)
     mask[lead[open_in & (lead >= 0)]] = 0

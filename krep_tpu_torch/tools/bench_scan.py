@@ -12,8 +12,8 @@ for m = 1, 3, 5, 17 and 64; the byte scan (bytescan.scan_blocks_bytes)
 count and mask for m = 3, 65, 1000 and 4096; the byte scan's four
 variants. Patterns of more than 5 bytes are cut from the text at a line
 start. Each case is held once to its plain version (literal.block_stats,
-bytescan.block_stats_bytes, bytescan.variant_stats_plain; first_line also
-through lines.first_line_fixup), then timed with CUDA events beside its
+bytescan.block_stats_bytes, bytescan.variant_stats_plain; first_line
+finished across blocks in its own launch), then timed with CUDA events beside its
 bound (bytes moved once over 3.35 TB/s). Each line gives the card's name
 and power limit. Exits 1 without a card or when a result differs.
 """

@@ -298,10 +298,15 @@ def line_mix_text(seed: int, size: int) -> bytes:
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", [1, 65536, 1_000_000])
 def test_first_line_kernels_match_plain(cuda_device, size):
-    """The scan kernel's first_line mode and the fix-up kernel against
+    """The scan kernel's first_line mode, one launch whose tail finishes
+    the mask (no fix-up kernel is left), against
     literal.block_stats(mask_kind="first_line"), exactly, over lines that
     straddle thread spans and blocks; the flags are the first match of
     each line."""
+    from krep_tpu_torch.ops import _build
+
+    assert not hasattr(swar, "first_line_fixup") and not hasattr(swar, "FIXUP_LAUNCHES")
+    assert not hasattr(_build.library(), "krep_first_line_fixup")
     text = line_mix_text(size, size)
     st = dispatch.stage(text, cuda_device)
     rng = np.random.default_rng(size)
@@ -310,12 +315,12 @@ def test_first_line_kernels_match_plain(cuda_device, size):
             continue
         for cs, ww in [(True, False), (False, True)]:
             for prev, limit in [(0, None), (1, int(rng.integers(1, size + 1)))]:
-                before = (swar.LAUNCHES, swar.FIRST_LINE_LAUNCHES, swar.FIXUP_LAUNCHES)
+                before = (swar.LAUNCHES, swar.FIRST_LINE_LAUNCHES, swar.TAIL_FOLDS)
                 kw = dict(pattern=pat, case_sensitive=cs, whole_word=ww, prev_word=prev,
                           start_limit=limit, want_mask=True, mask_kind="first_line")
                 stats, mask, totals = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, **kw)
-                assert (swar.LAUNCHES, swar.FIRST_LINE_LAUNCHES, swar.FIXUP_LAUNCHES) == tuple(
-                    b + 1 for b in before)
+                assert (swar.LAUNCHES, swar.FIRST_LINE_LAUNCHES, swar.TAIL_FOLDS) == tuple(
+                    b + 1 for b in before)  # one launch, its tail finishing the mask
                 pstats, pmask = literal.block_stats(st.u8, st.true_len, st.n_blocks, **kw)
                 assert torch.equal(stats, pstats) and torch.equal(mask, pmask)
                 assert torch.equal(totals, lines.combine_block_stats(pstats))
@@ -328,19 +333,53 @@ def test_first_line_kernels_match_plain(cuda_device, size):
                     assert torch.nonzero(mask).squeeze(1).tolist() == starts[first].tolist()
 
 
+def first_line_launch(text, true_len, n_blocks, mode, pattern=b"the"):
+    """One launch of the first_line instance through the library entry:
+    mode 1 finishes the mask in the tail (as swar.scan_blocks), mode 2
+    leaves each block's flags as if it began on a closed line."""
+    from krep_tpu_torch.ops import _build
+
+    stats = torch.empty((n_blocks, 8), dtype=torch.int32, device=text.device)
+    mask = torch.empty(n_blocks * 65536, dtype=torch.uint8, device=text.device)
+    totals = torch.empty(8, dtype=torch.int32, device=text.device)
+    stream = torch.cuda.current_stream(text.device).cuda_stream
+    err = _build.library().krep_scan_blocks(
+        text.data_ptr(), n_blocks, pattern, len(pattern), 0, 0, true_len, 0, swar.NO_LIMIT, mode,
+        mask.data_ptr(), stats.data_ptr(), totals.data_ptr(),
+        swar.tail_scratch(text.device, stream).data_ptr(), stream)
+    assert err == 0
+    return stats, mask, totals
+
+
 @pytest.mark.cuda
-def test_first_line_fixup_kernel_matches_plain(cuda_device):
-    """The fix-up kernel alone on block-by-block flags of 64 MiB of text
-    against its plain twin (lines.first_line_fixup)."""
-    text = np.frombuffer(line_mix_text(21, 1 << 20), np.uint8)
-    st = dispatch.stage(np.tile(text, 64), cuda_device)
-    stats, mask, _ = swar.scan_blocks(st.u8, st.true_len, st.n_blocks, pattern=b"the",
-                                      want_mask=True, mask_kind="first_line")
-    blockwise = mask.clone()
-    blockwise[stats[:, 5][stats[:, 5] >= 0].long()] = 1  # undo the clears
-    want = lines.first_line_fixup(stats, blockwise.clone())
-    assert torch.equal(want, mask)
-    assert torch.equal(swar.first_line_fixup(stats, blockwise), want)
+@pytest.mark.parametrize("n_blocks", [64, 65, 128, 1536])
+def test_first_line_tail_fixup_at_group_edges(cuda_device, n_blocks):
+    """The tail's fix-up at the edges of its 64-block groups: lines over
+    many blocks (no newline in blocks 1-3 and in each block 63-66 and
+    127-129 that exists), leads entering matched lines on both sides of
+    each group edge. The one launch equals literal.block_stats'
+    first_line mode; the launch without the step, finished by
+    lines.first_line_fixup, equals it too; and every lead the step clears
+    lies in a block that enters a matched line."""
+    text = raw_text(n_blocks, seed=n_blocks)
+    for b0, b1 in ((63, 67), (127, 130)):
+        seg = text[b0 * 65536 : min(b1, n_blocks) * 65536]
+        seg[seg == 10] = 32
+    dtext = text.to(cuda_device)
+    body = n_blocks * 65536
+    kw = dict(pattern=b"the", want_mask=True, mask_kind="first_line")
+    stats, mask, totals = swar.scan_blocks(dtext, body, n_blocks, **kw)
+    pstats, pmask = literal.block_stats(dtext, body, n_blocks, **kw)
+    check_totals(stats, totals, pstats, n_blocks)
+    assert torch.equal(mask, pmask)
+    bstats, blockwise, btotals = first_line_launch(dtext, body, n_blocks, 2)
+    assert torch.equal(bstats, stats) and torch.equal(btotals, totals)
+    cleared = torch.nonzero(blockwise != mask).squeeze(1)
+    assert cleared.numel() > 0
+    assert torch.equal(lines.first_line_fixup(stats, blockwise.clone()), mask)
+    assert set(cleared.tolist()) <= set(stats[:, 5].tolist())  # only block leads
+    again = first_line_launch(dtext, body, n_blocks, 1)
+    assert torch.equal(again[1], mask) and torch.equal(again[2], totals)
 
 
 @pytest.mark.cuda
@@ -993,11 +1032,13 @@ def test_lines_kernel_edge_cases(cuda_device, n_blocks):
         assert int(totals[1]) == naive.matched_lines(text[:body].numpy().tobytes(), starts)
 
 
-def dfa_vs_plain(text: bytes, pats, cs: bool, device) -> tuple[int, int]:
+def dfa_vs_plain(text: bytes, pats, cs: bool, device, kinds=ac.TABLE_KINDS,
+                 spans=(None,)) -> tuple[int, int]:
     """ops/ac.py's dfa_walk (csrc/dfa_scan.cu) on `device` against its
     plain version (dfa_scan_plain over krep_tpu's lanes, on the CPU) on the
-    same staged text, exactly, count and mask instances; returns (total,
-    flagged ends)."""
+    same staged text, exactly: the count and mask instances of every table
+    kind in `kinds` that holds the set, at each span (None: lane_span's);
+    returns (total, flagged ends)."""
     table, emit = ac.build_dense_ac(list(pats), cs)
     maxlen = max(map(len, pats))
     st, cst = dispatch.stage(text, device), dispatch.stage(text, "cpu")
@@ -1005,30 +1046,65 @@ def dfa_vs_plain(text: bytes, pats, cs: bool, device) -> tuple[int, int]:
     ptotal, pmask = ac.dfa_walk(cst.u8, cst.n, cst.n_blocks, torch.from_numpy(table),
                                 torch.from_numpy(emit), want_mask=True, **kw)
     dtable, demit = torch.from_numpy(table).to(device), torch.from_numpy(emit).to(device)
-    before = (ac.LAUNCHES, ac.MASK_LAUNCHES)
+    ran = []
+    for kind in kinds:
+        try:
+            packed = ac.pack_dense_table(table, emit, cs, kind).to(device)
+        except ValueError:  # this kind cannot hold the set
+            continue
+        for span in spans:
+            before = (ac.LAUNCHES, ac.MASK_LAUNCHES, ac.KIND_LAUNCHES[kind])
+            total, mask = ac.dfa_walk(st.u8, st.n, st.n_blocks, dtable, demit, want_mask=True,
+                                      packed=packed, span=span, **kw)
+            ctotal, none = ac.dfa_walk(st.u8, st.n, st.n_blocks, dtable, demit,
+                                       want_mask=False, packed=packed, span=span, **kw)
+            torch.cuda.synchronize()
+            assert (ac.LAUNCHES, ac.MASK_LAUNCHES, ac.KIND_LAUNCHES[kind]) == (
+                before[0] + 2, before[1] + 1, before[2] + 2)
+            assert int(total) == int(ctotal) == int(ptotal) and none is None, (kind, span)
+            assert torch.equal(mask.cpu(), pmask), (kind, span)
+        ran.append(kind)
+    assert ran
+    # the wrapper's own packing picks the first kind that holds the set
     total, mask = ac.dfa_walk(st.u8, st.n, st.n_blocks, dtable, demit, want_mask=True, **kw)
-    ctotal, none = ac.dfa_walk(st.u8, st.n, st.n_blocks, dtable, demit, want_mask=False, **kw)
-    torch.cuda.synchronize()
-    assert (ac.LAUNCHES, ac.MASK_LAUNCHES) == (before[0] + 2, before[1] + 1)
-    assert int(total) == int(ctotal) == int(ptotal) and none is None
-    assert torch.equal(mask.cpu(), pmask)
+    assert int(total) == int(ptotal) and torch.equal(mask.cpu(), pmask)
     return int(total), int(pmask.sum())
 
 
 @pytest.mark.cuda
 def test_dfa_scan_matches_plain(cuda_device):
-    """The dense-DFA kernel: texts of 1 byte to 3 MiB (spans straddling the
-    text's end, whole spans past it), -i, a 64-byte member, members that
-    start with zero bytes (the halo before the text reads as zeros), and
-    100 of bench.py's variants."""
+    """The dense-DFA kernel, every table kind that holds each set: texts of
+    1 byte to 3 MiB (spans straddling the text's end, whole spans past it),
+    -i, a 64-byte member, members that start with zero bytes (the halo
+    before the text reads as zeros), 100 of bench.py's variants (the shared
+    table) and 300 (past it: global), at the default span and at 16, 384
+    and 5,376 bytes (the last span past the body)."""
     corpus = naive.gen_english(23, 3 << 20)
     upper = bytes(np.where(np.frombuffer(corpus, np.uint8) % 7 == 0,
                            np.frombuffer(corpus.upper(), np.uint8), np.frombuffer(corpus, np.uint8)))
-    sets = [bench_hamming.variant_set(100),
+    sets = [bench_hamming.variant_set(100), bench_hamming.variant_set(300),
             (b"the", b"he", b"e", corpus[1000:1064], b"\x00\x00t", b"\x00T", b"her")]
     for pats in sets:
         for size in (1, 100, 65_536 + 7, 1 << 20, 3 << 20):
             for cs in (True, False):
-                total, ends = dfa_vs_plain(upper[:size], pats, cs, cuda_device)
+                spans = (None, 16, 384, 5376) if size == 1 << 20 else (None,)
+                total, ends = dfa_vs_plain(upper[:size], pats, cs, cuda_device, spans=spans)
                 if size >= 65_536:
                     assert total >= ends > 0
+
+
+@pytest.mark.cuda
+def test_dfa_scan_wide_counts(cuda_device):
+    """A -f list whose emission count passes 16 bits (65,600 copies of
+    "the" beside 100 variants) takes the wide table (counts from emit[])
+    by default, exactly; the other kinds refuse it."""
+    pats = (b"the",) * 65_600 + bench_hamming.variant_set(100)
+    table, emit = ac.build_dense_ac(list(pats), True)
+    assert int(emit.max()) > 0xFFFF
+    assert ac.pack_dense_table(table, emit, True).kind == "wide"
+    text = naive.gen_english(29, 1 << 20)
+    for cs in (True, False):
+        before = ac.KIND_LAUNCHES["wide"]
+        total, ends = dfa_vs_plain(text, pats, cs, cuda_device, kinds=("wide",),
+                                   spans=(None, 64))
+        assert total > 0xFFFF and ac.KIND_LAUNCHES["wide"] == before + 5

@@ -98,9 +98,16 @@ def test_search_dense_dfa_matches_reference(cs, want):
 
 
 def test_lane_span():
+    """About `target` threads (the card's resident threads of the instance;
+    2**18 by default), at least four halos; a power of two up to 128 bytes,
+    past it a multiple of 128."""
     mib = 1 << 20
     assert [ac.lane_span(n) for n in (64 << 10, 16 * mib, 64 * mib, 256 * mib, 1 << 30,
-                                      4 << 30)] == [256, 256, 256, 1024, 4096, 4096]
+                                      4 << 30)] == [16, 64, 256, 1024, 4096, 16384]
+    assert [ac.lane_span(16 * mib, h) for h in (0, 7, 16, 17, 63, 2000)] == [
+        64, 64, 64, 128, 256, 8064]
+    assert ac.lane_span(1 << 30, 7, 132 * 1536) == 5376  # 1 GiB / 5,376 B: 199,729 threads
+    assert ac.lane_span(1 << 40) == ac.MAX_SPAN
 
 
 DFA_ARGS = [["-c", "-o"], ["-c"], ["-o", "-m", "25"], ["-o"], ["-w", "-c", "-o"],

@@ -37,6 +37,7 @@ from krep_tpu.ops import pallas_swar
 from krep_tpu_torch import cli, convert
 from krep_tpu_torch.io import batch, files, walker
 from krep_tpu_torch.ops import dispatch, literal, swar
+from krep_tpu_torch.parallel import lines
 
 CPU = torch.device("cpu")
 REPO = Path(__file__).resolve().parents[1]
@@ -160,7 +161,7 @@ def test_block_flags_plus_fixup_equal_first_line(seed):
     moved = int((per_block != want).sum())
     assert moved > 0  # some block starts inside a line that already has a match
     assert moved <= st.n_blocks
-    assert torch.equal(swar.first_line_fixup(stats, per_block), want)
+    assert torch.equal(lines.first_line_fixup(stats, per_block), want)
 
 
 def test_first_line_needs_mask():
