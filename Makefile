@@ -5,7 +5,7 @@ PY ?= python
 CC ?= cc
 PY_ABS := $(shell $(PY) -c "import sys; print(sys.executable)")
 
-.PHONY: all test ci bench bench-all native client clean
+.PHONY: all test ci bench bench-all native client client-torch clean
 
 all: native client
 
@@ -21,6 +21,11 @@ bin/krep-tpu: krep_tpu/native/client.c
 	mkdir -p bin
 	$(CC) -O2 -Wall -DKREP_TPU_ROOT='"$(CURDIR)"' \
 	  -DKREP_TPU_PYTHON_DEFAULT='"$(PY_ABS)"' -o $@ $<
+
+# the PyTorch port's client (krep_tpu_torch/native/client.c), built into
+# build/krep_tpu_torch/ by the port itself; prints the binary's path
+client-torch:
+	$(PY) -m krep_tpu_torch.native.client
 
 test:
 	$(PY) -m pytest tests/ -x -q

@@ -195,6 +195,27 @@ The regex and dense-DFA slice (-E, KREP_TPU_DFA=1) adds:
                kind of the three sets, -i), then every instance timed beside
                its bound and plain time at 16 MiB, 64 MiB and 1 GiB, and the
                count by span (16 B to 4 KiB) at 16 MiB and 1 GiB.
+The resident engine (daemon.py, native/client.c, hostscan.calibrate) adds,
+after 5d:
+  4c. main path — hostscan.calibrate(force=True) on the card in a fresh
+               cache directory that also holds the JAX package's
+               breakeven.json (the record printed; threshold() returns it,
+               route_small(t) and not route_small(t + 1), the JAX record
+               unread); the client built by build_client(); the daemon
+               started through its double fork; through the client (no
+               autospawn, KREP_TPU_PYTHON=/bin/false, so a missed daemon
+               fails) `-c the` and `-o -m 1000 the` on 1 GiB, `-c -f` with
+               the 16 literals on 16 MiB, `-r --gitignore -c the` on the
+               config-5 tree, `-c -E '[A-Z][a-z]+ing'` on 64 MiB of the
+               config-4 corpus (the prefilter's kernels), `-c -E 'th[a-z]+'`
+               on 64 MiB (a declined prefilter: the fork pool, forked after
+               the CUDA context) and `-c the` on 64 MiB with the break-even
+               at 0 and at 4 GiB, each byte-identical to the port in process
+               and to the native host route; the same `-c the` served by
+               daemon.serve in a thread of this process launching the scan
+               as the CLI does; the one-shot CLI's and the client's times
+               (4 KiB and 1 GiB); `--stop` ending the daemon and removing
+               its socket.
 It then prints one JSON line of kernels and, last, the result line. It
 exits non-zero, with no result line, when any phase fails; when no card is
 available or the package is missing (a copy of the script run outside the
@@ -210,6 +231,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -675,10 +697,13 @@ def read_launches(*names: str) -> dict:
 
 
 @contextlib.contextmanager
-def env_set(name: str, value: str):
-    """$name = value inside the block, restored after it."""
+def env_set(name: str, value: str | None):
+    """$name = value (unset for None) inside the block, restored after it."""
     old = os.environ.get(name)
-    os.environ[name] = value
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
     try:
         yield
     finally:
@@ -890,6 +915,240 @@ def dfa_raw(st, packed, maxlen: int, span: int, mask=None, total=None) -> None:
         None if mask is None else mask.data_ptr(), total.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err == 0, f"krep_dfa_scan: CUDA error {err}")
+
+
+def daemon_pid(sock: str) -> int | None:
+    """The pid of the `krep_tpu_torch.daemon` process serving `sock` (its
+    command line names the socket), else None."""
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"krep_tpu_torch.daemon" in argv and sock.encode() in argv:
+            return int(d)
+    return None
+
+
+def alive(pid: int) -> bool:
+    """The process exists and has not exited (a zombie has)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def wait_for(cond, timeout: float, what: str) -> float:
+    """Polls cond() until it holds; returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"timed out after {timeout} s: {what}")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def warmed(pid: int) -> bool:
+    """The daemon's warm-up has loaded the kernel library (its staged scan
+    follows within milliseconds)."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "libkrep_tpu_torch_" in f.read()
+    except OSError:
+        return False
+
+
+def resident_engine_phase(workdir: str, card: str, files: dict, port_cli) -> None:
+    """Phase 4c: the calibrated route, the port's daemon and its native
+    client on the card. `files`: big (1 GiB config-1 corpus), small and
+    mid (its first 64 and 16 MiB), ing (1 GiB config-4 corpus), c5 (the
+    config-5 tree), f16 (the 16 literals); port_cli(args) -> (stdout, rc, s) runs the
+    port's CLI in this process."""
+    from krep_tpu_torch import daemon as kdaemon
+    from krep_tpu_torch.native import client as kclient
+    from krep_tpu_torch.ops import hostscan
+
+    # 1. calibrate on the card, in a cache directory that also holds the
+    # JAX package's record with another value (never to be read)
+    cache = os.path.join(workdir, "calibration")
+    os.makedirs(cache)
+    decoy = os.path.join(cache, "breakeven.json")
+    with open(decoy, "w") as f:
+        json.dump({"breakeven_bytes": 12_345}, f)
+    with env_set("KREP_TPU_CACHE_DIR", cache), env_set("KREP_TPU_HOST_BREAKEVEN", None):
+        t0 = time.perf_counter()
+        rec = hostscan.calibrate(force=True)
+        cal_s = time.perf_counter() - t0
+        t = hostscan.threshold()
+        routes = (hostscan.route_small(t), hostscan.route_small(t + 1))
+    say(f"calibration ({cal_s:.2f} s): host {rec['host_gbps']} GB/s, device overhead "
+        f"{rec['device_overhead_s']} s, device {rec['device_gbps']} GB/s, break-even "
+        f"{rec['breakeven_bytes']} bytes on {rec['platform']} {rec['device']} [{card}]")
+    say(f"  record: {rec}")
+    check(rec["platform"] == "cuda" and rec["device"] == torch.cuda.get_device_name(0),
+          f"the calibration did not run on the card: {rec}")
+    check(t == rec["breakeven_bytes"], f"threshold() {t} is not the record's")
+    check(routes == (True, False), f"route_small(t), route_small(t + 1) = {routes}")
+    check(sorted(os.listdir(cache)) == ["breakeven-torch.json", "breakeven.json"],
+          f"the calibration's files: {os.listdir(cache)}")
+    with open(decoy) as f:
+        check(json.load(f) == {"breakeven_bytes": 12_345}, "the JAX package's record changed")
+
+    # 2. the client, and the daemon through its real start path (the double
+    # fork), while the references run
+    t0 = time.perf_counter()
+    client = str(kclient.build_client())
+    say(f"client: built in {time.perf_counter() - t0:.2f} s -> {os.path.relpath(client, ROOT)}")
+    sock = os.path.join(workdir, "daemon.sock")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "krep_tpu_torch.daemon", "--sock", sock,
+                    "--idle", "600"], cwd=ROOT, check=True, timeout=60)
+    pid = None
+    try:
+        wait_for(lambda: os.path.exists(sock), 60, "the daemon's socket")
+        pid = daemon_pid(sock)
+        check(pid is not None, "no daemon process serves the socket")
+        say(f"daemon: pid {pid} listening {time.perf_counter() - t0:.2f} s after the start")
+        ing64 = os.path.join(workdir, "ing_64m.txt")
+        with open(files["ing"], "rb") as f, open(ing64, "wb") as g:
+            g.write(f.read(MIB64))
+        tiny = os.path.join(workdir, "corpus_4k.txt")
+        with open(files["big"], "rb") as f, open(tiny, "wb") as g:
+            g.write(f.read(4096))
+        big, small = files["big"], files["small"]
+        ere_env = {"KREP_TPU_STRICT": "1"}  # a failed fork pool raises
+        runs = [  # (arguments, the request's extra env)
+            (["-c", "the", big], {}),
+            (["-o", "-m", "1000", "the", big], {}),
+            (["-c", "-f", files["f16"], files["mid"]], {}),
+            (["-r", "--gitignore", "-c", "the", files["c5"]], {}),
+            (["-c", "-E", "[A-Z][a-z]+ing", ing64], ere_env),  # the prefilter's kernels
+            (["-c", "-E", "th[a-z]+", small], ere_env),  # declined: the fork pool
+            (["-c", "the", small], {"KREP_TPU_HOST_BREAKEVEN": "0"}),
+            (["-c", "the", small], {"KREP_TPU_HOST_BREAKEVEN": str(4 << 30)}),
+        ]
+        t0 = time.perf_counter()
+        refs = reference_clis([args for args, _ in runs],
+                              env_extra={"KREP_TPU_REGEX_FILTER_MIN": str(1 << 40)})
+        say(f"native host references: {time.perf_counter() - t0:.1f} s, 4 at a time [{card}]")
+        from krep_tpu_torch.engine import regex_engine
+
+        pool_runs = []
+        real_parallel = regex_engine._search_regex_parallel
+
+        def counting_parallel(*a):
+            pool_runs.append(len(a[1]))
+            return real_parallel(*a)
+
+        ports = []
+        regex_engine._search_regex_parallel = counting_parallel
+        try:
+            for args, extra in runs:
+                with contextlib.ExitStack() as stack:
+                    for k, v in extra.items():
+                        stack.enter_context(env_set(k, v))
+                    ports.append(port_cli(args))
+        finally:
+            regex_engine._search_regex_parallel = real_parallel
+        # the daemon runs the same code on the same request: its fork pool
+        # forks a process that holds a CUDA context
+        check(pool_runs == [MIB64], f"only `-c -E th[a-z]+` takes the fork pool: {pool_runs}")
+
+        wait_s = wait_for(lambda: warmed(pid), 120, "the daemon's warm-up")
+        say(f"daemon: warm (kernel library loaded) after a further {wait_s:.2f} s")
+        time.sleep(0.5)  # its small staged scan
+        base_env = dict(os.environ, KREP_TPU_DAEMON_SOCK=sock, KREP_TPU_DAEMON_AUTOSPAWN="0",
+                        KREP_TPU_PYTHON="/bin/false")
+
+        def via_client(args, extra=None, sock_path=sock):
+            env = dict(base_env, KREP_TPU_DAEMON_SOCK=sock_path, **(extra or {}))
+            t0 = time.perf_counter()
+            proc = subprocess.run([client, *args], env=env, capture_output=True, timeout=600)
+            return proc.stdout, proc.stderr, proc.returncode, time.perf_counter() - t0
+
+        first = via_client(["-c", "the", tiny])
+        # 3. parity: the client through the daemon, the port in process, the
+        # native host route
+        for (args, extra), port, ref in zip(runs, ports, refs):
+            out, err, rc, dt = via_client(args, extra)
+            same = (out, rc) == port[:2] == ref[:2] and err == b""
+            label = " ".join(os.path.basename(a) if os.sep in a else a for a in args)
+            say(f"daemon: krep {label} {extra or ''}: rc={rc} stdout={len(out)} B sha256="
+                f"{hashlib.sha256(out).hexdigest()[:16]} client {dt:.3f} s | in process "
+                f"{port[2]:.3f} s | native host {ref[2]:.3f} s | identical={same} [{card}]")
+            if err:
+                say(f"  stderr: {err[-400:]!r}")
+            check(same, f"the client's output differs for {label} {extra}")
+        tiny_port = port_cli(["-c", "the", tiny])
+        check(first[:3] == (tiny_port[0], b"", tiny_port[1]), f"the first call: {first[:3]}")
+
+        # 4. the daemon launched the kernels: the same request served by
+        # daemon.serve in a thread of this process, whose counts are readable
+        sock2 = os.path.join(workdir, "inproc.sock")
+        server = threading.Thread(target=kdaemon.serve, args=(sock2, 300), daemon=True)
+        server.start()
+        wait_for(lambda: os.path.exists(sock2), 60, "the in-process daemon's socket")
+        # a first request is served only once the warm-up thread exists;
+        # then wait for it, since its staged scan launches too
+        check(via_client(["-c", "the", tiny], sock_path=sock2)[2] == 0, "the in-process daemon")
+        for th in threading.enumerate():
+            if th.name == "krep-warm":
+                th.join(120)
+        reset_launches()
+        port_cli(["-c", "the", big])
+        want = read_launches("scan_blocks", TAIL)
+        reset_launches()
+        served = via_client(["-c", "the", big], sock_path=sock2)
+        got = read_launches("scan_blocks", TAIL)
+        kdaemon.stop(sock2)
+        server.join(60)
+        say(f"launches of one `-c the` (1 GiB) served by daemon.serve: {got} (in process: "
+            f"{want}); rc={served[2]}")
+        check(served[:3] == (ports[0][0], b"", ports[0][1]), "the in-process daemon's answer")
+        check(got == want and got["scan_blocks"] > 0, f"daemon launches {got} != {want}")
+        check(not server.is_alive() and not os.path.exists(sock2), "the in-process daemon stayed")
+
+        # 5. startup: the one-shot CLI against the warm client
+        def one_shot(path):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "krep_tpu_torch.cli", "-c", "the", path],
+                                  cwd=ROOT, capture_output=True, timeout=300)
+            check(proc.returncode == 0, f"one-shot CLI: {proc.stderr[-400:]!r}")
+            return time.perf_counter() - t0
+
+        def median(xs):
+            return sorted(xs)[len(xs) // 2]
+
+        times = {
+            "one-shot CLI, 4 KiB": median([one_shot(tiny) for _ in range(3)]),
+            "one-shot CLI, 1 GiB": median([one_shot(big) for _ in range(3)]),
+            "client, first call after the warm-up, 4 KiB": first[3],
+            "client, steady, 4 KiB": median([via_client(["-c", "the", tiny])[3]
+                                             for _ in range(5)]),
+            "client, steady, 1 GiB": median([via_client(["-c", "the", big])[3]
+                                             for _ in range(5)]),
+        }
+        for what, dt in times.items():
+            say(f"startup: `krep -c the` {what}: {dt:.4f} s (break-even 0: the device route; "
+                f"one-shot median of 3, steady median of 5) [{card}]")
+    finally:
+        # 6. stop: --stop ends the daemon and removes its socket (a daemon
+        # still there a minute later is killed, and the phase fails)
+        subprocess.run([sys.executable, "-m", "krep_tpu_torch.daemon", "--stop", "--sock", sock],
+                       cwd=ROOT, timeout=60)
+        t0 = time.perf_counter()
+        while ((os.path.exists(sock) or (pid is not None and alive(pid)))
+               and time.perf_counter() - t0 < 60):
+            time.sleep(0.02)
+        stopped = time.perf_counter() - t0
+        if pid is not None and alive(pid):
+            os.kill(pid, signal.SIGKILL)
+    check(pid is not None and not alive(pid) and not os.path.exists(sock),
+          "--stop left the daemon or its socket")
+    say(f"daemon: stopped, socket removed, process ended {stopped:.2f} s after --stop")
 
 
 def refuse(cause: str) -> int:
@@ -2510,6 +2769,14 @@ def main() -> int:
             del st, dmask, dtotal
         launches.update(dlaunches)
         del corpus
+
+        phase("4c")
+        # 4c. the resident engine: the calibrated route, the daemon started
+        # through its double fork and its native client, each query
+        # byte-identical to the port in process and the native host route
+        resident_engine_phase(workdir, card, {
+            "big": big, "small": small, "mid": mid, "ing": ing, "c5": c5,
+            "f16": pattern_file("pats16_4c.txt", pats16)}, port_cli)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

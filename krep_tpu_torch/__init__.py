@@ -14,12 +14,27 @@ Public API (mirrors krep_tpu/__init__.py):
     search_string(params, text, device=...) -> SearchResult
     search_file(params, path, device=...)   -> SearchResult
 `device` defaults to $KREP_TORCH_DEVICE, else "cuda".
+
+The names load on first use, so that `python -m krep_tpu_torch.daemon`
+imports torch only in the daemon, after it has forked.
 """
 
-from .engine.search import SearchResult, search_file, search_string
-from .params import SearchParams
+import importlib
 
 __version__ = "0.1.0"
+
+_LAZY = {
+    "SearchParams": ".params",
+    "search_string": ".engine.search",
+    "search_file": ".engine.search",
+    "SearchResult": ".engine.search",
+}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name], __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
     "SearchParams",

@@ -134,20 +134,29 @@ def iter_files(
     yield from _walk(base_dir, use_gitignore, _parent_gi, [0])
 
 
-def _open_dir(path, use_gitignore, parent_gi, err_acc):
+def _stderr_warn(err_acc):
+    """The walk's default report: write the line now, count it if asked."""
+
+    def warn(line: str, counted: bool) -> None:
+        sys.stderr.write(line)
+        err_acc[0] += counted
+
+    return warn
+
+
+def _open_dir(path, use_gitignore, parent_gi, warn):
     """One directory level: list entries + resolve the gitignore chain.
     Returns (entry_iterator, gitignore) or None when the level is skipped
     (reference error policy at krep.c:3317-3327)."""
     try:
         entries = list(os.scandir(path))
     except PermissionError:
-        sys.stderr.write(f"krep: {path}: Permission denied\n")
+        warn(f"krep: {path}: Permission denied\n", False)
         return None
     except FileNotFoundError:
         return None
     except OSError as e:
-        sys.stderr.write(f"krep: {path}: {e.strerror}\n")
-        err_acc[0] += 1
+        warn(f"krep: {path}: {e.strerror}\n", True)
         return None
     gi = parent_gi
     if use_gitignore:
@@ -157,12 +166,15 @@ def _open_dir(path, use_gitignore, parent_gi, err_acc):
     return iter(entries), gi
 
 
-def _walk(base_dir, use_gitignore, parent_gi, err_acc):
+def _walk(base_dir, use_gitignore, parent_gi, err_acc, warn=None):
     """Depth-first walk with an EXPLICIT frame stack (not Python recursion):
     the reference's C recursion (krep.c:3310-3445) survives kernel-deep
     trees, and a recursive generator here would die at the interpreter
-    recursion limit (~1000 frames) long before PATH_MAX does."""
-    frame = _open_dir(base_dir, use_gitignore, parent_gi, err_acc)
+    recursion limit (~1000 frames) long before PATH_MAX does. Each error
+    line goes to warn(line, counted), by default written at once and
+    counted in err_acc."""
+    warn = warn or _stderr_warn(err_acc)
+    frame = _open_dir(base_dir, use_gitignore, parent_gi, warn)
     if frame is None:
         return
     stack = [frame]
@@ -178,15 +190,14 @@ def _walk(base_dir, use_gitignore, parent_gi, err_acc):
         except FileNotFoundError:
             continue
         except OSError as e:
-            sys.stderr.write(f"krep: {entry.path}: {e.strerror}\n")
-            err_acc[0] += 1
+            warn(f"krep: {entry.path}: {e.strerror}\n", True)
             continue
         if stat_mod.S_ISDIR(st.st_mode):
             if should_skip_directory(name):
                 continue
             if gi is not None and gi.is_ignored(name, True):
                 continue
-            sub = _open_dir(entry.path, use_gitignore, gi, err_acc)
+            sub = _open_dir(entry.path, use_gitignore, gi, warn)
             if sub is not None:
                 stack.append(sub)
         elif stat_mod.S_ISREG(st.st_mode):
@@ -263,7 +274,8 @@ def search_directory(
     WINDOW = 2
     SOLO_HELD_MAX = 256 << 20  # bound bytes parked behind pending batches
     building = batch_mod.Batch()
-    # FIFO of ("batch", PendingBatch) | ("solo", path, data, future)
+    # FIFO of ("batch", PendingBatch) | ("solo", path, data, future) |
+    # ("error", line, counted)
     queue: list = []
     held_bytes = [0]
     # solo scans run on ONE worker thread so a large file's staging+scan
@@ -281,8 +293,20 @@ def search_directory(
         except Exception as e:  # per-file errors don't abort -r
             return ("err", e)
 
+    def warn(line: str, counted: bool) -> None:
+        """A walk or read error's line. Behind queued work it waits for its
+        turn, so stderr keeps walk order (the C binary's, krep.c:3402-3430)
+        however long the scans queued before it take."""
+        queue.append(("error", line, counted))
+        emit_ready_solos()
+
     def emit_ready_solos(block=False):
-        while queue and queue[0][0] == "solo":
+        while queue and queue[0][0] != "batch":
+            if queue[0][0] == "error":
+                _, line, counted = queue.pop(0)
+                sys.stderr.write(line)
+                err_acc[0] += counted
+                continue
             if not block and not queue[0][3].done():
                 return  # keep walking; the scan is still in flight
             _, path, data, fut = queue.pop(0)
@@ -297,11 +321,11 @@ def search_directory(
             emit(path, data, val)
 
     def drain_head_batch():
-        if queue[0][0] == "solo":
+        if queue[0][0] != "batch":
             # an in-flight solo gates the window: its output must precede
             # the batches behind it, so block on the scan
             emit_ready_solos(block=True)
-            if not queue or queue[0][0] == "solo":
+            if not queue or queue[0][0] != "batch":
                 return
         _, p = queue.pop(0)
         for path, fdata, result in batch_mod.drain_batch(params, p):
@@ -323,21 +347,20 @@ def search_directory(
     def drain_all():
         submit_building()
         while queue:
-            if queue[0][0] == "solo":
+            if queue[0][0] != "batch":
                 emit_ready_solos(block=True)
             else:
                 drain_head_batch()
 
     # size-independent eligibility once per run, size check per file
     params_eligible = batch_mod.eligible_params(params)
-    for path, size in _walk(base_dir, use_gi, None, err_acc):
+    for path, size in _walk(base_dir, use_gi, None, err_acc, warn):
         if params_eligible and size <= batch_mod.BATCH_FILE_MAX:
             try:
                 with open(path, "rb") as f:
                     data = f.read()
             except OSError as e:
-                sys.stderr.write(f"krep: {path}: {e}\n")
-                err_acc[0] += 1
+                warn(f"krep: {path}: {e}\n", True)
                 continue
             building.add(path, data)
             if building.full:
@@ -349,8 +372,7 @@ def search_directory(
         try:
             data = files.read_bytes(path)
         except OSError as e:
-            sys.stderr.write(f"krep: {path}: {e}\n")
-            err_acc[0] += 1
+            warn(f"krep: {path}: {e}\n", True)
             continue
         if solo_pool[0] is None:
             import concurrent.futures as _cf

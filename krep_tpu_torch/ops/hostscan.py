@@ -14,19 +14,25 @@ SAME resolution stage the device mask path uses (engine/resolve.py), so
 parity corners are enforced in exactly one place.
 
 Break-even: KREP_TPU_HOST_BREAKEVEN overrides (bytes; 0 disables the host
-route), else a 32 MiB default. The JAX package's calibration (and the file
-it caches, which measures another device) is not read here.
-KREP_TPU_PROFILE=1 logs each routing decision.
+route); else this package's own disk-cached `calibrate()` record
+($KREP_TPU_CACHE_DIR/breakeven-torch.json); else a 32 MiB default.
+`calibrate()` times the native host scan and the staged device scan and
+solves for the crossover. The JAX package caches its record as
+breakeven.json in the same directory; that record measures another device
+and is never read here. KREP_TPU_PROFILE=1 logs each routing decision.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
+import time
 
 import numpy as np
 
 DEFAULT_BREAKEVEN = 32 << 20
+BREAKEVEN_CAP = 1 << 30  # never route texts beyond the single-slab size
 
 _native = None
 _native_tried = False
@@ -49,16 +55,35 @@ def available() -> bool:
     return _nat() is not None
 
 
+def _cache_path() -> str:
+    cache = os.environ.get(
+        "KREP_TPU_CACHE_DIR", os.path.expanduser("~/.cache/krep_tpu")
+    )
+    return os.path.join(cache, "breakeven-torch.json")
+
+
+_threshold_cache: int | None = None
+
+
 def threshold() -> int:
-    """Routing threshold in bytes (inputs at or below it scan host-side):
-    $KREP_TPU_HOST_BREAKEVEN, else DEFAULT_BREAKEVEN."""
+    """Routing threshold in bytes (inputs at or below it scan host-side)."""
+    global _threshold_cache
     env = os.environ.get("KREP_TPU_HOST_BREAKEVEN")
     if env is not None:
         try:
             return max(0, int(env))
         except ValueError:
             return DEFAULT_BREAKEVEN
-    return DEFAULT_BREAKEVEN
+    if _threshold_cache is None:
+        val = DEFAULT_BREAKEVEN
+        try:
+            with open(_cache_path()) as f:
+                rec = json.load(f)
+            val = int(rec["breakeven_bytes"])
+        except Exception:
+            pass
+        _threshold_cache = min(max(val, 0), BREAKEVEN_CAP)
+    return _threshold_cache
 
 
 def route_small(n_bytes: int, k_patterns: int = 1) -> bool:
@@ -218,3 +243,105 @@ def search_multi_host(params, text, patterns):
             starts, ends, mc, final_sort=params.sorted_positions
         )
         return SearchResult(len(positions), positions, n)
+
+
+# ---- break-even calibration -------------------------------------------
+
+
+def _calib_corpus(size: int) -> np.ndarray:
+    rng = np.random.default_rng(99)
+    words = (
+        b"the quick brown fox jumps over a lazy dog and then some more "
+        b"words it was time for Sherlock to breathe deeply in the theatre"
+    ).split()
+    parts, total = [], 0
+    while total < size:
+        idx = rng.integers(0, len(words), 8)
+        line = b" ".join(words[i] for i in idx) + b"\n"
+        parts.append(line)
+        total += len(line)
+    return np.frombuffer(b"".join(parts), np.uint8)[:size]
+
+
+def calibrate(
+    force: bool = False, verbose: bool = False, device=None, *,
+    big_bytes: int = 8 << 20, small_bytes: int = 1 << 20,
+) -> dict:
+    """Measure host scan rate and device overhead+rate once; cache the
+    solved break-even on disk (per machine and device). `device` follows
+    dispatch.resolve_device: the card unless the caller asks for the CPU,
+    and no card raises. Returns the record."""
+    path = _cache_path()
+    if not force:
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except Exception:
+            pass
+
+    import torch
+
+    from . import dispatch
+
+    dev = dispatch.resolve_device(device)
+    pat = b"the"
+    big = _calib_corpus(big_bytes)
+    small = big[:small_bytes]
+
+    def _host_time(buf):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            scan_count(buf, pat, True, False, count_lines=True)
+            ts.append(time.perf_counter() - t0)
+        return min(ts)
+
+    host_rate = len(big) / max(_host_time(big), 1e-9)
+
+    def _dev_time(buf):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            staged = dispatch.stage(buf, dev)
+            totals, _, _ = dispatch.scan_literal_staged(
+                staged, pattern=pat, case_sensitive=True, whole_word=False,
+                want_mask=False,
+            )
+            int(totals[1])  # the matched lines, read back: the scan is done
+            ts.append(time.perf_counter() - t0)
+        return min(ts)
+
+    _dev_time(small)  # warm both bucket shapes (pinned buffers, the kernels)
+    _dev_time(big)
+    t_small = _dev_time(small)
+    t_big = _dev_time(big)
+    dn = len(big) - len(small)
+    dev_rate = dn / max(t_big - t_small, 1e-9)
+    dev_overhead = max(t_small - len(small) / dev_rate, 0.0)
+
+    if dev_rate <= host_rate or dev_overhead <= 0:
+        breakeven = BREAKEVEN_CAP  # the device never wins end-to-end here
+    else:
+        breakeven = int(dev_overhead / (1.0 / host_rate - 1.0 / dev_rate))
+        breakeven = min(max(breakeven, 1 << 20), BREAKEVEN_CAP)
+
+    rec = {
+        "breakeven_bytes": breakeven,
+        "host_gbps": round(host_rate / 1e9, 3),
+        "device_overhead_s": round(dev_overhead, 4),
+        "device_gbps": round(dev_rate / 1e9, 3),
+        "platform": dev.type,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "measured_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
+    }
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(rec, f)
+    except Exception:
+        pass
+    global _threshold_cache
+    _threshold_cache = None
+    if verbose or os.environ.get("KREP_TPU_PROFILE") == "1":
+        sys.stderr.write(f"krep-tpu: break-even calibration: {rec}\n")
+    return rec

@@ -14,11 +14,13 @@ hold no "^".
 """
 
 import ast
+import concurrent.futures
 import contextlib
 import io
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -306,14 +308,69 @@ def test_cli_recursive_launches_first_line_scan(tree, monkeypatch):
     assert calls and "first_line" not in calls
 
 
+class SyncExecutor(concurrent.futures.Executor):
+    """A ThreadPoolExecutor stand-in that runs each task as it is submitted,
+    so every solo scan of a -r walk is done when the walker next looks."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def submit(self, fn, /, *args, **kwargs):
+        fut = concurrent.futures.Future()
+        try:
+            fut.set_result(fn(*args, **kwargs))
+        except BaseException as e:  # noqa: BLE001 - handed to the caller
+            fut.set_exception(e)
+        return fut
+
+
+class SlowExecutor(concurrent.futures.ThreadPoolExecutor):
+    """A ThreadPoolExecutor whose tasks each start 0.2 s late: solo scans
+    still in flight while the walk reads the files after them."""
+
+    def submit(self, fn, /, *args, **kwargs):
+        def late(*a, **k):
+            time.sleep(0.2)
+            return fn(*a, **k)
+
+        return super().submit(late, *args, **kwargs)
+
+
+def walk_order_reference(argv, monkeypatch):
+    """krep_tpu.cli with its solo scans run synchronously: every per-file
+    stderr line in walk order, the C binary's (krep.c:3402-3430)."""
+    with monkeypatch.context() as m:
+        m.setattr(concurrent.futures, "ThreadPoolExecutor", SyncExecutor)
+        return run(jcli.main, argv, monkeypatch)
+
+
+RECURSIVE_ERE = [["-r", "-E", "t.e"], ["-r", "-E", "-c", "[bad"]]
+
+
 def test_cli_recursive_errors(tree, monkeypatch):
     for argv in (["-r", "-s", "the", "x"], ["-r", "the", str(tree / "big.txt")],
                  ["-r", "-e", "", "-e", "a", str(tree)]):
         got = run(cli.main, argv, monkeypatch, device="cpu")
         assert got == run(jcli.main, argv, monkeypatch)
         assert got[2] == 2
-    for argv in (["-r", "-E", "t.e", str(tree)], ["-r", "-E", "-c", "[bad", str(tree)]):
-        assert run(cli.main, argv, monkeypatch, device="cpu") == run(jcli.main, argv, monkeypatch)
+    for args in RECURSIVE_ERE:  # every file solo (batch.eligible_params)
+        argv = [*args, str(tree)]
+        assert run(cli.main, argv, monkeypatch, device="cpu") == walk_order_reference(
+            argv, monkeypatch)
+
+
+@pytest.mark.parametrize("args", RECURSIVE_ERE, ids=lambda a: " ".join(a))
+def test_cli_recursive_stderr_walk_order_with_slow_scans(tree, args, monkeypatch):
+    """Solo scans that finish after the walk has read the files behind
+    them: the unreadable file's error still follows the compile and search
+    errors of the files walked before it."""
+    argv = [*args, str(tree)]
+    want = walk_order_reference(argv, monkeypatch)
+    with monkeypatch.context() as m:
+        m.setattr(concurrent.futures, "ThreadPoolExecutor", SlowExecutor)
+        got = run(cli.main, argv, monkeypatch, device="cpu")
+    assert got == want
+    assert "locked.txt: [Errno 13] Permission denied" in got[1]
 
 
 ISOLATION = r"""
@@ -327,6 +384,15 @@ import krep_tpu_torch.parallel.mesh, krep_tpu_torch.graft_entry
 import krep_tpu_torch.ops.bytescan, krep_tpu_torch.tools.bench_kernel
 import krep_tpu_torch.engine.regex_engine, krep_tpu_torch.engine.ere_analyze
 import krep_tpu_torch.ops.ac
+import krep_tpu_torch.daemon, krep_tpu_torch.native.client
+import os, tempfile
+from krep_tpu_torch.ops import hostscan
+with tempfile.TemporaryDirectory() as cache:
+    os.environ["KREP_TPU_CACHE_DIR"] = cache
+    os.environ["KREP_TORCH_DEVICE"] = "cpu"
+    hostscan.calibrate(force=True, big_bytes=1 << 16, small_bytes=1 << 14)
+    hostscan.threshold()
+    krep_tpu_torch.daemon.warm()
 bad = sorted(m for m in sys.modules
              if m in ("krep_tpu", "jax") or m.startswith(("krep_tpu.", "jax.", "jaxlib")))
 print("foreign:", bad)
