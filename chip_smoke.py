@@ -216,6 +216,21 @@ after 5d:
                as the CLI does; the one-shot CLI's and the client's times
                (4 KiB and 1 GiB); `--stop` ending the daemon and removing
                its socket.
+The bench and the soak (krep_tpu_torch/tools/bench.py,
+tools/soak_fuzz_torch.py) add, each in a process of its own, its seconds
+printed:
+  6b. main path — `python -m krep_tpu_torch.tools.bench --all` at 64 MiB
+               (bench.py's configs 1-6 with 3b, 3c, 3w and 3L): exit 0,
+               every line's count equal to krep_tpu's CLI on its native
+               host route, the scan, K-pattern, Hamming and lines kernels
+               launched;
+  6s. main path — `tools/soak_fuzz_torch.py --seconds 90` on the card, fixed
+               seeds: every fuzz batch through the port's kernels against
+               krep_tpu's native host route, clean, its case count per
+               batch printed, the K=1 (count and first_line), K-pattern,
+               lines, Hamming, byte and dense-DFA kernels launched. A
+               mismatch prints the soak's repro on the lines before the
+               failure.
 It then prints one JSON line of kernels and, last, the result line. It
 exits non-zero, with no result line, when any phase fails; when no card is
 available or the package is missing (a copy of the script run outside the
@@ -305,71 +320,6 @@ START = time.perf_counter()
 def phase(name: str) -> None:
     """A phase's first line: the seconds since the script started."""
     say(f"-- phase {name} at {time.perf_counter() - START:.1f} s")
-
-
-def token_table(tokens: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
-    """The tokens as a zero-padded (V, L) uint8 table and its (V, L) mask
-    of real bytes: table[idx][real[idx]] is the concatenation of the
-    tokens idx, with no int64 index per output byte."""
-    width = max(map(len, tokens))
-    table = np.zeros((len(tokens), width), np.uint8)
-    real = np.zeros((len(tokens), width), bool)
-    for i, t in enumerate(tokens):
-        table[i, : len(t)] = np.frombuffer(t, np.uint8)
-        real[i, : len(t)] = True
-    return table, real
-
-
-def gen_corpus(path: str, size: int, seed: int = 12345) -> None:
-    """bench.py's config-1 corpus recipe (lines of 3-8 words from its
-    vocabulary, joined by spaces), vectorised over a million lines at a
-    time."""
-    rng = np.random.default_rng(seed)
-    tokens = [w + b" " for w in WORDS]
-    lens = np.array([len(t) for t in tokens], dtype=np.int64)
-    table, real = token_table(tokens)
-    written = 0
-    with open(path, "wb") as f:
-        while written < size:
-            k = rng.integers(3, 9, 1 << 20)
-            idx = rng.integers(0, len(WORDS), int(k.sum()))
-            ends = np.cumsum(lens[idx])
-            total = int(ends[-1])
-            chunk = table[idx][real[idx]]
-            chunk[ends[np.cumsum(k) - 1] - 1] = 10  # a line's last space -> '\n'
-            take = min(total, size - written)
-            f.write(chunk[:take].tobytes())
-            written += take
-
-
-ING_WORDS = [b"jumping", b"singing", b"working", b"morning", b"nothing",  # bench.py:516
-             b"Running", b"Marking"]
-
-
-def gen_corpus_ing(path: str, size: int, seed: int = 4242) -> None:
-    """bench.py's config-4 corpus recipe (gen_corpus_ing, bench.py:520-549):
-    config 1's lines, and in about 3% of them one word replaced by an 'ing'
-    word; vectorised over a million lines at a time."""
-    rng = np.random.default_rng(seed)
-    tokens = [w + b" " for w in WORDS + ING_WORDS]
-    lens = np.array([len(t) for t in tokens], dtype=np.int64)
-    table, real = token_table(tokens)
-    written = 0
-    with open(path, "wb") as f:
-        while written < size:
-            k = rng.integers(3, 9, 1 << 20)
-            idx = rng.integers(0, len(WORDS), int(k.sum()))
-            first = np.cumsum(k) - k
-            hit = rng.random(k.shape[0]) < 0.03
-            at = first[hit] + (rng.random(int(hit.sum())) * k[hit]).astype(np.int64)
-            idx[at] = len(WORDS) + rng.integers(0, len(ING_WORDS), int(hit.sum()))
-            ends = np.cumsum(lens[idx])
-            total = int(ends[-1])
-            chunk = table[idx][real[idx]]
-            chunk[ends[np.cumsum(k) - 1] - 1] = 10  # a line's last space -> '\n'
-            take = min(total, size - written)
-            f.write(chunk[:take].tobytes())
-            written += take
 
 
 def near_cap_set(text: np.ndarray, seed: int = 5) -> tuple[bytes, ...]:
@@ -466,27 +416,6 @@ def gen_tree(root: str, n_dirs: int, per_dir: int, n_big: int, part_dirs: int = 
     with open(os.path.join(root, ".gitignore"), "w") as f:
         f.write(f"pkg{n_dirs - 1:03d}/\n")
     return {"files": files, "bytes": total, "part0_files": part0_files, "part0_bytes": part0_bytes}
-
-
-def gen_config5_tree(root: str) -> None:
-    """bench.py:640-666 itself: 20 directories of 50 files, seed 7, with the
-    recipe's per-line loop (about 22 MB)."""
-    rng = np.random.default_rng(7)
-    for d in range(20):
-        sub = os.path.join(root, f"pkg{d:02d}")
-        os.makedirs(sub, exist_ok=True)
-        for i in range(50):
-            k = rng.integers(5_000, 40_000)
-            lines = []
-            t = 0
-            while t < k:
-                ln = b" ".join(TREE_WORDS[j] for j in rng.integers(0, len(TREE_WORDS), 6))
-                lines.append(ln)
-                t += len(ln) + 1
-            with open(os.path.join(sub, f"m{i:03d}.py"), "wb") as f:
-                f.write(b"\n".join(lines))
-    with open(os.path.join(root, ".gitignore"), "w") as f:
-        f.write("pkg19/\n")
 
 
 def long_lines(text: np.ndarray, seed: int = 11) -> np.ndarray:
@@ -1151,6 +1080,72 @@ def resident_engine_phase(workdir: str, card: str, files: dict, port_cli) -> Non
     say(f"daemon: stopped, socket removed, process ended {stopped:.2f} s after --stop")
 
 
+BENCH_KERNELS = ("scan_blocks", "scan_blocks_multi", "hamming_scan", "lines_blocks")
+SOAK_KERNELS = ("scan_blocks", "scan_blocks first_line", "scan_blocks_multi", "lines_blocks",
+                "hamming_scan", "scan_bytes", "dfa_scan")
+
+
+def child_env(**extra: str) -> dict:
+    """This process's environment without its KREP_TPU_*/KREP_TORCH_*
+    settings (a child sets its own), plus `extra`."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("KREP_TPU_", "KREP_TORCH_"))}
+    env.update(extra)
+    return env
+
+
+def bench_phase(workdir: str) -> None:
+    """Phase 6b: `python -m krep_tpu_torch.tools.bench --all` at 64 MiB, as a
+    user runs it, in a process of its own: every config's line, every
+    parity true, exit 0, and the scan, K-pattern, Hamming and lines kernels
+    launched by its configs."""
+    out = os.path.join(workdir, "bench_all.json")
+    env = child_env(KREP_BENCH_BYTES=str(MIB64),
+                    KREP_BENCH_CORPUS_DIR=os.path.join(workdir, "bench_corpus"),
+                    KREP_TPU_CACHE_DIR=os.path.join(workdir, "bench_cache"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "krep_tpu_torch.tools.bench", "--all",
+                           "--reps", "5", "--out", out], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0 and os.path.exists(out),
+          f"bench --all exited {proc.returncode}: {proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    with open(out) as f:
+        recs = json.load(f)["configs"]
+    launched = {}
+    for r in recs:
+        say(f"  bench {r['config']}: {r['value']} GB/s, parity {r['count_parity_vs_reference']} "
+            f"({r['match_count']} = krep_tpu {r['reference_count']}), CLI "
+            f"{r.get('cli_seconds', r.get('seconds', '-'))} s, launches {r['launches']} "
+            f"[{r['card']}]")
+        for k, v in r["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    check([r["config"] for r in recs] == ["1", "2", "3", "3b", "3c", "3w", "3L", "4", "5", "6"],
+          f"bench --all lines: {[r['config'] for r in recs]}")
+    check(all(r["count_parity_vs_reference"] is True for r in recs), "a bench parity is false")
+    check(all(launched.get(k) for k in BENCH_KERNELS), f"bench launches {launched}")
+    say(f"phase 6b: {secs:.1f} s")
+
+
+def soak_phase() -> None:
+    """Phase 6s: `tools/soak_fuzz_torch.py --seconds 90` on the card (fixed
+    seeds): every batch through the port's kernels against krep_tpu's
+    native host route, clean; its case count per batch; every kernel of
+    its routes launched. A mismatch prints the soak's repro and fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join("tools", "soak_fuzz_torch.py"),
+                           "--seconds", "90", "--seed-base", "13000", "--device", "cuda"],
+                          cwd=ROOT, env=child_env(), capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        say(f"  soak: {line}")
+    check(proc.returncode == 0, f"the soak exited {proc.returncode}: {proc.stderr[-3000:]}")
+    summary = json.loads(next(line for line in proc.stdout.splitlines()
+                              if line.startswith('{"cases"')))
+    check(all(summary["launches"].get(k) for k in SOAK_KERNELS),
+          f"soak launches {summary['launches']}")
+    say(f"phase 6s: {secs:.1f} s")
+
+
 def refuse(cause: str) -> int:
     """Exit code 1 with a last line {"ok": false, "error": cause}."""
     sys.stderr.write(f"chip_smoke: {cause}\n")
@@ -1172,6 +1167,8 @@ def main() -> int:
     from krep_tpu_torch import SearchParams, cli, search_string
     from krep_tpu_torch.ops import _build, dispatch, literal, mxu, swar
     from krep_tpu_torch.parallel import lines
+    # bench.py's corpus recipes, byte for byte, from the port's bench
+    from krep_tpu_torch.tools.bench import gen_config5_tree, gen_corpus, gen_corpus_ing
     # bench.py's pattern sets: config 3b's variants, config 3c's mixed members
     from krep_tpu_torch.tools.bench_hamming import mixed_set, variant_set
     # sets that stress the K-pattern scan's verify: one 4-byte prefix for 64
@@ -1691,7 +1688,6 @@ def main() -> int:
         def write_trees():
             os.makedirs(tree)
             info = gen_tree(tree, 400, 50, 8)
-            os.makedirs(c5)
             gen_config5_tree(c5)
             return info
 
@@ -2777,6 +2773,14 @@ def main() -> int:
         resident_engine_phase(workdir, card, {
             "big": big, "small": small, "mid": mid, "ing": ing, "c5": c5,
             "f16": pattern_file("pats16_4c.txt", pats16)}, port_cli)
+
+        phase("6b")
+        # 6b. the port's bench, every config held to krep_tpu's CLI
+        bench_phase(workdir)
+
+        phase("6s")
+        # 6s. the differential soak on the card
+        soak_phase()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -7,6 +7,9 @@ jax, so it also runs where jax is absent:
 """
 
 import io
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1108,3 +1111,15 @@ def test_dfa_scan_wide_counts(cuda_device):
         total, ends = dfa_vs_plain(text, pats, cs, cuda_device, kinds=("wide",),
                                    spans=(None, 64))
         assert total > 0xFFFF and ac.KIND_LAUNCHES["wide"] == before + 5
+
+
+@pytest.mark.cuda
+def test_soak_on_the_card(cuda_device):
+    """tools/soak_fuzz_torch.py for 20 s on the card: every batch through
+    the port's CUDA kernels against krep_tpu's native host route, clean."""
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, str(repo / "tools" / "soak_fuzz_torch.py"), "--seconds", "20",
+         "--seed-base", "11"], cwd=repo, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-2000:]
+    assert "soak clean" in proc.stdout

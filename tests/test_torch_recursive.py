@@ -385,7 +385,9 @@ import krep_tpu_torch.ops.bytescan, krep_tpu_torch.tools.bench_kernel
 import krep_tpu_torch.engine.regex_engine, krep_tpu_torch.engine.ere_analyze
 import krep_tpu_torch.ops.ac
 import krep_tpu_torch.daemon, krep_tpu_torch.native.client
+import krep_tpu_torch.tools.bench
 import os, tempfile
+assert krep_tpu_torch.tools.bench.corpus_bytes(4096).shape == (4096,)
 from krep_tpu_torch.ops import hostscan
 with tempfile.TemporaryDirectory() as cache:
     os.environ["KREP_TPU_CACHE_DIR"] = cache
