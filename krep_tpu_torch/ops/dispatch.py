@@ -23,16 +23,27 @@ slab loop to a numpy host scan under a non-SWAR backend
 (engine/search.py:307-319); the port does not, since that would put a CPU
 route on a machine with a card.
 
+Staging a text of two chunks (CHUNK_BYTES) or more is a pipeline: host
+threads fill the pinned buffer chunk by chunk, and each chunk's copy to
+the card is issued as soon as it is filled, so the copy of one chunk runs
+while the threads fill the next. A shorter text is copied whole, then
+sent whole.
+
 The host's parts of a staged scan are spans of utils/profiling.py:
 `stage.pin` (the pinned buffer acquired), `stage.copy` (the text copied
-into it), `stage.h2d` (the copy to the card issued), `device.wait` (the
-host blocked on the card's results, `to_host`) and `readback.expand`
-(the mask's groups or bits expanded into offsets on the host).
+into it; on the pipeline, the whole fill loop, with each chunk's
+`stage.h2d` inside it), `stage.h2d` (the copy to the card issued),
+`device.wait` (the host blocked on the card's results, `to_host`) and
+`readback.expand` (the mask's groups or bits expanded into offsets on the
+host). The counters `stage.pipelined` and `stage.chunks` count the
+stagings that took the pipeline and the chunks they issued.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from concurrent import futures
 
 import numpy as np
 import torch
@@ -46,6 +57,8 @@ HALO_ROWS = 32         # 4 KiB forward zero halo
 LANES = 128
 HALO_BYTES = HALO_ROWS * LANES
 GROUP_BYTES = BLOCK_BYTES  # mask readback groups: 64 KiB of text each
+CHUNK_BYTES = 16 << 20  # the staging pipeline's chunk: a whole number of blocks
+FILL_WORKERS = 8        # the most host threads that fill chunks
 
 
 def backend() -> str:
@@ -101,17 +114,21 @@ class StagedText:
     def __init__(self, host: torch.Tensor, n: int, device: torch.device):
         if host.shape[0] != bucket_size(n):
             raise ValueError("host buffer is not in the staged layout for n")
+        with profiling.span("stage.h2d"):
+            if device.type == "cuda":
+                u8 = host.to(device, non_blocking=True)
+                profiling.count("h2d.bytes", host.shape[0])
+            else:
+                u8 = host
+        self._bind(host, n, u8)
+
+    def _bind(self, host: torch.Tensor, n: int, u8: torch.Tensor) -> None:
         self._host = host
         self._np = host.numpy()
         self.n = n
         self.true_len = n
         self.tail_zero = True
-        with profiling.span("stage.h2d"):
-            if device.type == "cuda":
-                self.u8 = host.to(device, non_blocking=True)
-                profiling.count("h2d.bytes", host.shape[0])
-            else:
-                self.u8 = host
+        self.u8 = u8
 
     @property
     def n_blocks(self) -> int:
@@ -154,6 +171,72 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return a
 
 
+_POOL: tuple[int, futures.ThreadPoolExecutor] | None = None  # (pid, pool)
+_POOL_LOCK = threading.Lock()
+
+
+def _fill_pool() -> futures.ThreadPoolExecutor:
+    """The process's pool of fill threads, made at its first use (and
+    anew in a forked child, whose copy of the parent's pool has no
+    threads)."""
+    global _POOL
+    pid = os.getpid()
+    with _POOL_LOCK:
+        if _POOL is None or _POOL[0] != pid:
+            workers = min(FILL_WORKERS, len(os.sched_getaffinity(0)))
+            _POOL = (pid, futures.ThreadPoolExecutor(workers, "krep-stage"))
+        return _POOL[1]
+
+
+def _fill(hv: np.ndarray, buf: np.ndarray, a: int, b: int) -> None:
+    """Bytes [a, b) of the staged layout: the text where it reaches, zeros
+    past it."""
+    n = buf.shape[0]
+    if a < n:
+        hv[a:min(b, n)] = buf[a:b]
+    hv[max(a, n):b] = 0
+
+
+def _device_buffer(host: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """Where the pipeline puts the staged text: a new buffer on a card, the
+    host buffer itself on the CPU."""
+    if dev.type == "cuda":
+        return torch.empty(host.shape[0], dtype=torch.uint8, device=dev)
+    return host
+
+
+def _stage_chunks(buf: np.ndarray, host: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """The staging pipeline: the pool fills `host` in chunks of CHUNK_BYTES
+    (the last one takes the remainder), and this thread issues each
+    chunk's copy to the card on the current stream as soon as it is
+    filled. Returns the device buffer (`host` itself on the CPU); the
+    kernels launched after it on the stream see every chunk."""
+    size = host.shape[0]
+    u8 = _device_buffer(host, dev)
+    send = u8 is not host
+    hv = host.numpy()
+    k = size // CHUNK_BYTES
+    cuts = [i * CHUNK_BYTES for i in range(k)] + [size]
+    pool = _fill_pool()
+    with profiling.span("stage.copy"):
+        fills = [pool.submit(_fill, hv, buf, a, b) for a, b in zip(cuts, cuts[1:])]
+        try:
+            for a, b, f in zip(cuts, cuts[1:], fills):
+                f.result()
+                if send:
+                    with profiling.span("stage.h2d"):
+                        u8[a:b].copy_(host[a:b], non_blocking=True)
+        finally:
+            for f in fills:  # on an error, no fill outlives the call
+                f.cancel()
+            futures.wait(fills)
+    if send:
+        profiling.count("h2d.bytes", size)
+    profiling.count("stage.pipelined")
+    profiling.count("stage.chunks", k)
+    return u8
+
+
 def stage(
     text, device: str | torch.device | None = None, true_len: int | None = None
 ) -> StagedText:
@@ -170,12 +253,14 @@ def stage(
         )
     dev = resolve_device(device)
     host = host_buffer(bucket_size(n), dev)
-    with profiling.span("stage.copy"):
-        hv = host.numpy()
-        hv[:n] = buf
-        hv[n:] = 0
-    profiling.count("stage.bytes", hv.shape[0])
-    st = StagedText(host, n, dev)
+    profiling.count("stage.bytes", host.shape[0])
+    if n >= 2 * CHUNK_BYTES:
+        st = object.__new__(StagedText)
+        st._bind(host, n, _stage_chunks(buf, host, dev))
+    else:
+        with profiling.span("stage.copy"):
+            _fill(host.numpy(), buf, 0, host.shape[0])
+        st = StagedText(host, n, dev)
     if true_len is not None:
         st.true_len = true_len
         st.tail_zero = true_len >= n

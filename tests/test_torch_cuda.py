@@ -1129,3 +1129,69 @@ def test_soak_on_the_card(cuda_device):
          "--seed-base", "11"], cwd=repo, capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-2000:]
     assert "soak clean" in proc.stdout
+
+
+def tiled_english(seed: int, size: int) -> tuple[bytes, int]:
+    """`size` bytes of a 1 MiB English block of whole lines, repeated, and
+    the number of its lines that hold "the" (krep -c the)."""
+    block = naive.gen_english(seed, 1 << 20)
+    block = block[: block.rfind(b"\n") + 1]
+    reps, tail = divmod(size, len(block))
+    per_block = sum(b"the" in line for line in block.split(b"\n")[:-1])
+    in_tail = sum(b"the" in line for line in block[:tail].split(b"\n"))
+    return block * reps + block[:tail], reps * per_block + in_tail
+
+
+@pytest.mark.cuda
+def test_pipelined_staging_copies_every_chunk(cuda_device):
+    """About 200 MiB and an odd tail through the staging pipeline: the
+    card's buffer is the pinned host buffer byte for byte, the zero halo
+    included."""
+    n = (200 << 20) + 4093
+    text = np.random.default_rng(5).integers(0, 256, n, dtype=np.uint8)
+    before = counter("stage.pipelined"), counter("stage.chunks")
+    st = dispatch.stage(text, cuda_device)
+    chunks = dispatch.bucket_size(n) // dispatch.CHUNK_BYTES
+    assert (counter("stage.pipelined"), counter("stage.chunks")) == (
+        before[0] + 1, before[1] + chunks)
+    assert torch.equal(st.u8.cpu(), st._host)  # read behind every chunk's copy
+    assert np.array_equal(st._np[:n], text) and not st._np[n:].any()
+
+
+@pytest.mark.cuda
+def test_back_to_back_pipelined_stagings_keep_their_texts(cuda_device):
+    """Two texts of one bucket staged in turns, each dropped while its
+    chunks' copies may still run: the next staging must not refill a pinned
+    block before those copies end, so every scan counts its own text."""
+    size = 3 * dispatch.CHUNK_BYTES + 12_345
+    texts = [tiled_english(seed, size) for seed in (41, 42)]
+    assert texts[0][1] != texts[1][1]
+    totals = []
+    for text, _ in texts + texts:
+        st = dispatch.stage(text, cuda_device)
+        tot, _, _ = dispatch.scan_literal_staged(
+            st, pattern=b"the", case_sensitive=True, whole_word=False, want_mask=False)
+        totals.append(tot)
+        del st
+    assert [int(t[1]) for t in totals] == [want for _, want in texts + texts]
+
+
+@pytest.mark.cuda
+def test_cli_count_pipelined_matches_single_copy(cuda_device, tmp_path, monkeypatch):
+    """-c the through cli.main on a text of more than two chunks: the
+    pipeline and the single copy print the same count, the right one."""
+    from krep_tpu_torch import cli
+
+    monkeypatch.setenv("KREP_TPU_HOST_BREAKEVEN", "0")
+    text, want = tiled_english(43, 5 * dispatch.CHUNK_BYTES // 2 + 777)
+    path = tmp_path / "t.txt"
+    path.write_bytes(text)
+    outs = []
+    for chunk in (dispatch.CHUNK_BYTES, 1 << 40):  # the pipeline, then the single copy
+        monkeypatch.setattr(dispatch, "CHUNK_BYTES", chunk)
+        before = counter("stage.pipelined")
+        out = io.BytesIO()
+        rc = cli.main(["-c", "the", str(path)], out=out, device=cuda_device)
+        outs.append((rc, out.getvalue(), counter("stage.pipelined") - before))
+    line = f"{path}:{want}\n".encode()
+    assert outs == [(0, line, 1), (0, line, 0)]

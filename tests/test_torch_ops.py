@@ -9,6 +9,8 @@ so every comparison is exact equality.
 tests/test_torch_cuda.py holds the same comparisons for the CUDA kernels.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from krep_tpu.parallel import mesh
 from krep_tpu_torch import convert
 from krep_tpu_torch.ops import dispatch, literal, swar
 from krep_tpu_torch.parallel import lines
+from krep_tpu_torch.utils import profiling
 
 CPU = torch.device("cpu")
 
@@ -339,6 +342,56 @@ def test_staging_contract_matches_reference():
     assert st.n_blocks * 65536 + dispatch.HALO_BYTES == st.u8.shape[0]
     with pytest.raises(ValueError):
         convert.staged_from_reference(np.ones(10, np.uint8), 3, CPU)
+
+
+PIPE_CHUNK = 3 * 65536  # the pipeline's chunk in the tests: three blocks
+PIPE_LENGTHS = [0, 1, PIPE_CHUNK - 1, PIPE_CHUNK, PIPE_CHUNK + 1, 2 * PIPE_CHUNK + 5,
+                7 * PIPE_CHUNK + 4095]
+
+
+@pytest.mark.parametrize("true_len", [None, "short"], ids=["whole", "true_len"])
+@pytest.mark.parametrize("source", ["bytes", "array", "memmap"])
+@pytest.mark.parametrize("n", PIPE_LENGTHS)
+def test_staging_pipeline_matches_reference(n, source, true_len, tmp_path, monkeypatch):
+    """Texts around the chunk's edges staged through the chunked fill (two
+    chunks or more) and the single copy: the staged layout is krep_tpu's
+    byte for byte, and the counters say which path ran."""
+    monkeypatch.setattr(dispatch, "CHUNK_BYTES", PIPE_CHUNK)
+    text = naive.gen_corpus(n, n, alphabet=b"abcthe \n\x00\xff")
+    if source == "bytes":
+        src = text
+    else:
+        src = np.frombuffer(text, np.uint8).copy()
+        if source == "memmap" and n:  # numpy maps no empty file
+            path = tmp_path / "t.bin"
+            path.write_bytes(text)
+            src = np.memmap(path, dtype=np.uint8, mode="r")
+    tl = None if true_len is None else max(0, n - 3)
+    before = (profiling.counter("stage.pipelined"), profiling.counter("stage.chunks"))
+    st = dispatch.stage(src, CPU, true_len=tl)
+    assert np.array_equal(st._np, jdispatch.stage(text)._np)
+    assert st.u8.data_ptr() == st._host.data_ptr()  # the host buffer itself on the CPU
+    assert (st.n, st.true_len) == (n, n if tl is None else tl)
+    assert st.tail_zero == (tl is None or tl >= n)
+    piped = n >= 2 * PIPE_CHUNK
+    chunks = dispatch.bucket_size(n) // PIPE_CHUNK if piped else 0
+    after = (profiling.counter("stage.pipelined"), profiling.counter("stage.chunks"))
+    assert after == (before[0] + piped, before[1] + chunks)
+
+
+def test_fill_pool_is_made_once_a_process(monkeypatch):
+    """One pool of fill threads a process, never more than FILL_WORKERS, and
+    a new one where the pid changed (a forked child's)."""
+    monkeypatch.setattr(dispatch, "_POOL", None)  # the process's own pool comes back after
+    pool = dispatch._fill_pool()
+    assert dispatch._fill_pool() is pool
+    assert pool._max_workers == min(dispatch.FILL_WORKERS, len(os.sched_getaffinity(0)))
+    pid = os.getpid()
+    monkeypatch.setattr(os, "getpid", lambda: pid + 1)
+    child = dispatch._fill_pool()
+    assert child is not pool and dispatch._fill_pool() is child
+    for p in (pool, child):
+        p.shutdown()
 
 
 @pytest.mark.parametrize("density", ["empty", "sparse", "dense"])

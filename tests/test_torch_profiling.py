@@ -97,6 +97,38 @@ def test_device_route_spans_nest_under_one_root(registry, corpus):
     assert own == pytest.approx(secs - children, abs=1e-6)
 
 
+def test_pipelined_staging_spans_and_counters(registry, corpus, monkeypatch):
+    """The staging pipeline (a chunk of four blocks, so the 3 MiB corpus
+    takes it): one `stage.copy` span over the whole fill loop, each chunk's
+    copy issued in a `stage.h2d` span inside it, the bytes of the whole
+    bucket, and the pipeline's counters in the KREP_TPU_PROFILE line. The
+    CPU has no copy to issue, so a separate CPU buffer stands in for the
+    card's."""
+    want = query(["-c", "the", str(corpus)])  # the single copy
+    registry.reset()
+    monkeypatch.setattr(dispatch, "CHUNK_BYTES", 4 * 65536)
+    monkeypatch.setattr(dispatch, "_device_buffer", lambda host, dev: torch.empty_like(host))
+    monkeypatch.setenv("KREP_TPU_PROFILE", "1")
+    size = dispatch.bucket_size(corpus.stat().st_size)
+    chunks = size // (4 * 65536)
+    rc, out, err = query(["-c", "the", str(corpus)])
+    assert (rc, out) == want[:2] and rc == 0
+    recs = registry.records()
+    (root,) = [r for r in recs if r.name == "query"]
+    (copy,) = [r for r in recs if r.name == "stage.copy"]
+    h2d = [r for r in recs if r.name == "stage.h2d"]
+    assert copy.parent is root and len(h2d) == chunks
+    assert all(r.parent is copy and copy.start <= r.start <= r.end <= copy.end for r in h2d)
+    assert registry.totals()["stage.copy"][1] == 1
+    for name, n in (("stage.bytes", size), ("h2d.bytes", size), ("stage.pipelined", 1),
+                    ("stage.chunks", chunks)):
+        assert registry.counter(name) == n
+    line = err.splitlines()[-1]
+    assert re.search(r"stage\.copy [0-9.]+ \(1\)", line)
+    assert re.search(rf"stage\.h2d [0-9.]+ \({chunks}\)", line)
+    assert "stage.pipelined 1" in line and f"stage.chunks {chunks}" in line
+
+
 def test_profiler_trace_holds_the_spans_inside_the_root(registry, corpus, tmp_path):
     from torch.profiler import ProfilerActivity, profile
 
