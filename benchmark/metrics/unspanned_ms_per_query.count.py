@@ -1,0 +1,12 @@
+"""unspanned_ms_per_query.count: unspanned_ms_per_query in the -c cells,
+whose speed is the per-layer window_gbps; the reader is unspanned_ms_per_query.py's."""
+
+import importlib.util
+from pathlib import Path
+
+_spec = importlib.util.spec_from_file_location(
+    "bench_unspanned_ms_per_query_base", Path(__file__).with_name("unspanned_ms_per_query.py"))
+_base = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_base)
+SPANS = getattr(_base, "SPANS", {})
+read = _base.read

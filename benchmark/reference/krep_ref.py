@@ -4,15 +4,20 @@ A plain implementation of the C binary's documented behaviour (krep
 v2.2.0, krep.c) for literal searches, independent of the program under
 test; it imports nothing of it.
 
-    answer(argv) -> Answer(stdout_sha256, stdout_bytes, stdout_lines, stderr, rc)
+    answer(argv) -> Answer(stdout_sha256, stdout_bytes, stdout_lines, stderr, rc,
+                           searched_files, searched_bytes)
 
 Supported: `[-c] [-o] [-F] (PATTERN | -e P ... | -f FILE) FILE`, literals
 without a newline. `-c` prints `FILE:N`, N the lines that hold a match of
 any pattern; `-o` prints `FILE:LINENO:MATCH` per non-overlapping match of
-one literal. Anything else raises NotImplementedError.
+one literal. With `-r [--gitignore] -c` the operand is a directory, walked
+as tree.py sets out: `PATH:N` for every file searched. Anything else
+raises NotImplementedError. searched_files and searched_bytes: the files
+the query searched and their bytes.
 
 `control` breaks one guarantee, to show that the comparison sees it:
-"block_edges" loses each match that crosses a 64 KiB edge of the file.
+"block_edges" loses each match that crosses a 64 KiB edge of the file;
+"gitignore_negation" drops every '!' line of the .gitignore files.
 """
 
 from __future__ import annotations
@@ -21,10 +26,10 @@ import hashlib
 import os
 from typing import NamedTuple
 
-from . import scan
+from . import scan, tree
 
 EDGE = 1 << 16
-CONTROLS = ("block_edges",)
+CONTROLS = ("block_edges", "gitignore_negation")
 
 
 class Answer(NamedTuple):
@@ -33,6 +38,8 @@ class Answer(NamedTuple):
     stdout_lines: int
     stderr: str
     rc: int
+    searched_files: int
+    searched_bytes: int
 
 
 class _Digest:
@@ -52,7 +59,8 @@ class _Digest:
 
 def parse(argv: list[str]) -> dict:
     """The options of `argv` that the reference supports."""
-    q = {"count": False, "only": False, "patterns": [], "target": None}
+    q = {"count": False, "only": False, "recursive": False, "gitignore": False,
+         "patterns": [], "target": None}
     args = list(argv)
     rest = []
     while args:
@@ -63,6 +71,10 @@ def parse(argv: list[str]) -> dict:
             q["only"] = True
         elif a == "-F":
             pass
+        elif a == "-r":
+            q["recursive"] = True
+        elif a == "--gitignore":
+            q["gitignore"] = True
         elif a == "-e":
             q["patterns"].append(args.pop(0).encode())
         elif a == "-f":
@@ -86,7 +98,14 @@ def parse(argv: list[str]) -> dict:
         raise NotImplementedError("-o is supported for one literal, without -c")
     if not (q["count"] or q["only"]):
         raise NotImplementedError("line output (neither -c nor -o)")
-    if not os.path.isfile(q["target"]):
+    if q["gitignore"] and not q["recursive"]:
+        raise NotImplementedError("--gitignore without -r")
+    if q["recursive"]:
+        if not q["count"]:
+            raise NotImplementedError("-r without -c")
+        if not os.path.isdir(q["target"]) or os.path.islink(q["target"]):
+            raise NotImplementedError("-r with an operand that is not a directory")
+    elif not os.path.isfile(q["target"]):
         raise NotImplementedError("a FILE that is not a regular file")
     return q
 
@@ -97,9 +116,19 @@ def answer(argv: list[str], control: str | None = None) -> Answer:
     if control not in (None, *CONTROLS):
         raise ValueError(f"unknown control {control!r}")
     q = parse(argv)
-    edge = EDGE if control == "block_edges" else None
     out = _Digest()
     target = q["target"]
+    if q["recursive"]:
+        if control == "block_edges":
+            raise NotImplementedError("block_edges on a tree")
+        matched, files, searched = tree.count_tree(
+            target, q["patterns"], q["gitignore"], out,
+            drop_negations=control == "gitignore_negation")
+        return Answer(out.sha.hexdigest(), out.bytes, out.lines, "", 0 if matched else 1,
+                      files, searched)
+    if control == "gitignore_negation":
+        raise NotImplementedError("gitignore_negation on one file")
+    edge = EDGE if control == "block_edges" else None
     if q["count"]:
         n = scan.count_lines_file(target, q["patterns"], edge=edge)
         out.write(f"{target}:{n}\n".encode())
@@ -107,4 +136,5 @@ def answer(argv: list[str], control: str | None = None) -> Answer:
     else:
         matched = scan.only_matching_file(target, q["patterns"][0], target.encode(), out,
                                           edge=edge) > 0
-    return Answer(out.sha.hexdigest(), out.bytes, out.lines, "", 0 if matched else 1)
+    return Answer(out.sha.hexdigest(), out.bytes, out.lines, "", 0 if matched else 1,
+                  1, os.path.getsize(target))

@@ -27,7 +27,9 @@ One run:
 4. The check: the reference (benchmark/reference, plain NumPy) answers the
    same argv on the same inputs, once per seed; every query's stdout,
    stderr and exit code are held to it. The numbers compared, each beside
-   its limit, close standard error and the result line.
+   its limit, close standard error and the result line. The bytes a query
+   searches, as the reference counts them: its file's size, or for a
+   directory (-r) the bytes of the files searched in it.
 
 Nothing of the JAX package or of jax may be loaded when the result is
 due: the run then exits 2 and prints no result.
@@ -233,7 +235,9 @@ def reference(here: Path, traffic_name: str, argv: list[str]) -> dict:
         ans = load_json(path)
         if ans.get("key") == key.hexdigest():
             return ans
-    ans = dict(krep_ref.answer(argv)._asdict(), key=key.hexdigest())
+    t0 = time.perf_counter()
+    ans = krep_ref.answer(argv)._asdict()
+    ans.update(key=key.hexdigest(), seconds=time.perf_counter() - t0)
     tmp = path.with_suffix(".tmp")
     tmp.write_text(json.dumps(ans))
     os.replace(tmp, path)
@@ -284,7 +288,6 @@ def run_cell(args: argparse.Namespace, device: str = "cuda") -> int:
         kind = "cpu"
     os.chdir(here)
     argv = [a.format(**inputs) for a in cell.traffic["argv"]]
-    target = argv[-1]
     from krep_tpu_torch import cli
 
     warm = query(cli.main, argv, device)
@@ -340,7 +343,9 @@ def run_cell(args: argparse.Namespace, device: str = "cuda") -> int:
           f"{ms[0]:.1f} median {ms[len(ms) // 2]:.1f} max {ms[-1]:.1f}, mean of the first half "
           f"{sum(q.seconds for q in queries[:half]) * 1e3 / max(1, half):.1f} and of the second "
           f"{sum(q.seconds for q in queries[half:]) * 1e3 / (len(queries) - half):.1f}; "
-          f"reference {t_ref:.3f} s", file=sys.stderr)
+          f"reference {t_ref:.3f} s (its answer took {ans['seconds']:.3f} s: "
+          f"{ans['searched_files']} files, {ans['searched_bytes']} bytes searched)",
+          file=sys.stderr)
     compared = check([warm] + queries, ans)
     correct = all(v["value"] <= v["limit"] for v in compared.values())
     failed = sum(any(faults(q, ans).values()) for q in queries)
@@ -348,7 +353,7 @@ def run_cell(args: argparse.Namespace, device: str = "cuda") -> int:
     peaks = load_json(BENCH / "peaks.json")
     run = SimpleNamespace(
         queries=queries, window_s=window_s, setup_s=setup_s, argv=argv,
-        target_bytes=os.path.getsize(target) if os.path.isfile(target) else None,
+        target_bytes=ans["searched_bytes"], memory_peak_bytes=peak,
         spans={k: tuple(v) for k, v in (spans.totals.items() if spans else [])},
         device=dev, peak=next((v for k, v in peaks.items() if k in kind), None),
     )

@@ -12,7 +12,7 @@ import sys
 
 import pytest
 
-from bench_helpers import BENCH, SMALL, checkout, result, run, spec
+from bench_helpers import BENCH, SMALL, TREE_CELL, checkout, result, run, spec, tree_spec
 
 KEYS = {"correct", "attempted", "failed", "metrics", "device"}
 
@@ -66,12 +66,12 @@ def test_new_config_traffic_and_metric_are_found_by_name(tmp_path):
     assert {k: v for k, v in after.items() if k in before} == before
 
 
-@pytest.mark.parametrize("workload", [w["name"] for w in spec()["workloads"]])
+@pytest.mark.parametrize("workload", [w["name"] for w in tree_spec()["workloads"]])
 def test_every_cell_runs_on_small_inputs(tmp_path, workload):
-    """Each cell of BENCHMARK.json at small sizes,
+    """Each cell of BENCHMARK.json (and the linux_tree cell) at small sizes,
     both kinds of run: the reference agrees, and the check closes stderr
     and the result line."""
-    root = checkout(tmp_path, spec(), config_params=SMALL)
+    root = checkout(tmp_path, tree_spec(), config_params=SMALL)
     for trace in (0, 1):
         proc = run(root, workload, seed=5 + trace, trace=trace)
         r = result(proc)
@@ -81,7 +81,15 @@ def test_every_cell_runs_on_small_inputs(tmp_path, workload):
         assert proc.stderr.strip().split("\n")[-3:] == [
             f"check {k} 0 limit 0" for k in ("wrong_stdout", "wrong_stderr", "wrong_rc")]
         if trace == 0:
-            assert "setup_s" in r["metrics"]
+            # every end-to-end metric of the cell but the card's memory,
+            # which a run without a card does not read
+            want = {m["name"] for m in tree_spec()["end_to_end"]
+                    if workload in m.get("workloads", [workload])} - {"device_memory_gb"}
+            assert "setup_s" in want
+            assert set(r["metrics"]) == want
+            assert all(m["value"] > 0 for m in r["metrics"].values())
+        else:
+            assert {"unspanned_ms_per_query", "unspanned_ms_per_query.count"} & set(r["metrics"])
 
 
 def test_no_card_no_result(tmp_path):
@@ -119,13 +127,42 @@ def _bad(params, text, *a, **k):
 S.search_string = _bad
 """
 
+# faults of the -r walk: the last file the walk yields left out, every
+# .gitignore passed over, a file's count altered where the batch gives it
+SKIP_LAST = """
+import krep_tpu_torch.io.walker as W
+_orig = W._walk
+def _bad(*a, **k):
+    files = list(_orig(*a, **k))
+    yield from files[:-1]
+W._walk = _bad
+"""
+NO_GITIGNORE = """
+import krep_tpu_torch.io.walker as W
+_orig = W._walk
+def _bad(base_dir, use_gitignore, *a, **k):
+    return _orig(base_dir, False, *a, **k)
+W._walk = _bad
+"""
+ALTERED_COUNT = """
+import krep_tpu_torch.io.batch as B
+_orig = B.drain_batch
+def _bad(*a, **k):
+    for i, (path, data, r) in enumerate(_orig(*a, **k)):
+        yield path, data, (r.__class__(r.count + 1, r.positions, r.text_len) if i == 3 else r)
+B.drain_batch = _bad
+"""
+
+
 @pytest.mark.parametrize("workload,fault", [
     ("subtitles_en.count-the", ALTERED), ("subtitles_en.count-the", HALF_TEXT),
     ("subtitles_en.count-list64", ALTERED), ("subtitles_en.count-list64", HALF_TEXT),
     ("subtitles_en.o-the", ALTERED), ("subtitles_en.o-the", HALF_TEXT),
-], ids=["the-altered", "the-half", "list64-altered", "list64-half", "o-altered", "o-half"])
+    (TREE_CELL, SKIP_LAST), (TREE_CELL, NO_GITIGNORE), (TREE_CELL, ALTERED_COUNT),
+], ids=["the-altered", "the-half", "list64-altered", "list64-half", "o-altered", "o-half",
+        "tree-skip-last", "tree-no-gitignore", "tree-altered-count"])
 def test_a_broken_program_is_not_correct(tmp_path, workload, fault):
-    root = checkout(tmp_path, spec(), config_params=SMALL)
+    root = checkout(tmp_path, tree_spec(), config_params=SMALL)
     proc = run(root, workload, seed=9, prelude=fault)
     r = result(proc)
     assert r["correct"] is False and r["failed"] == r["attempted"]
@@ -137,9 +174,9 @@ def test_control_reads_not_correct(tmp_path):
     """The control (each configuration's broken guarantee) at sizes a test
     holds, on three seeds a cell: put in the program's place, the run's own
     check finds it not correct."""
-    params = {"subtitles_en": {"bytes": 16 << 20}}
-    root = checkout(tmp_path, spec(), config_params=params)
-    for workload in [w["name"] for w in spec()["workloads"]]:
+    params = {"subtitles_en": {"bytes": 16 << 20}, "linux_tree": SMALL["linux_tree"]}
+    root = checkout(tmp_path, tree_spec(), config_params=params)
+    for workload in [w["name"] for w in tree_spec()["workloads"]]:
         proc = subprocess.run([sys.executable, "benchmark/control.py", "--workload", workload,
                                "--seeds", "1,2,3"], cwd=root, capture_output=True, text=True,
                               timeout=600)
@@ -160,7 +197,7 @@ def test_forbidden_module_loaded_after_the_window_gives_no_result(tmp_path, name
     root = checkout(tmp_path, config_params=SMALL)
     prelude = ""
     if where == "metric":
-        reader = root / "benchmark" / "metrics" / "query_gbps.py"
+        reader = root / "benchmark" / "metrics" / "setup_s.py"
         reader.write_text(reader.read_text().replace(
             "def read(run):\n", "def read(run):\n    " + PLANT.format(name=name) + "\n"))
     else:
@@ -181,3 +218,86 @@ def test_benchmark_json_names_files_that_exist():
         assert (BENCH / "traffic" / f"{w['traffic']}.json").is_file()
     for m in b["end_to_end"] + b["per_layer"]:
         assert (BENCH / "metrics" / f"{m['name']}.py").is_file()
+
+
+def test_every_metric_moves_a_metric_its_cells_report():
+    """Each cell reports setup_s, another end-to-end metric and a per-layer
+    metric; a per-layer metric names in `moves` an end-to-end metric that
+    each of its cells reports; a `.count` reader is its base reader."""
+    b = spec()
+    for w in [w["name"] for w in b["workloads"]]:
+        e2e = {m["name"] for m in b["end_to_end"] if w in m.get("workloads", [w])}
+        assert "setup_s" in e2e and len(e2e) >= 2, w
+        assert any(w in m["workloads"] for m in b["per_layer"]), w
+        for m in b["per_layer"]:
+            if w in m["workloads"]:
+                assert m["moves"] in e2e, (w, m["name"])
+    names = {m["name"] for m in b["per_layer"]}
+    for name in [n for n in names if n.endswith(".count")]:
+        split = _reader(name)
+        base = _reader(name[: -len(".count")])
+        assert split.read.__code__.co_code == base.read.__code__.co_code
+        assert getattr(split, "SPANS", {}) == getattr(base, "SPANS", {})
+
+
+def _reader(name):
+    import importlib.util
+
+    spec_ = importlib.util.spec_from_file_location("t_" + name.replace(".", "_"),
+                                                   BENCH / "metrics" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(mod)
+    return mod
+
+
+def test_device_memory_and_window_rate_readers():
+    from types import SimpleNamespace
+
+    mem = _reader("device_memory_gb")
+    assert mem.read(SimpleNamespace(memory_peak_bytes=2_150_000_000)) == 2.15
+    assert mem.read(SimpleNamespace(memory_peak_bytes=0)) is None
+    run_ = SimpleNamespace(target_bytes=10**9, queries=[None] * 30, window_s=2.0)
+    assert _reader("window_gbps").read(run_) == _reader("query_gbps").read(run_) == 15.0
+
+
+def _run_module(root):
+    """benchmark/run.py of the scratch checkout at root, imported here."""
+    import importlib.util
+
+    spec_ = importlib.util.spec_from_file_location("bench_run_" + root.name,
+                                                   root / "benchmark" / "run.py")
+    mod = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(mod)
+    return mod
+
+
+def test_inputs_and_searched_bytes_of_the_cells(tmp_path):
+    """Every cell keeps its inputs under benchmark/data/<config>/s<seed>/ of
+    its checkout. The bytes a query searches: for the subtitles_en cells the
+    corpus file's size, as before the tree walk; for the tree cell the
+    bytes of the files its walk searches, fewer than the tree holds."""
+    root = checkout(tmp_path, tree_spec(), config_params=SMALL)
+    run_mod = _run_module(root)
+    from reference import krep_ref
+
+    here = os.getcwd()
+    try:
+        for w in [w["name"] for w in spec()["workloads"]] + [TREE_CELL]:
+            cell = run_mod.Cell(w)
+            seed_dir, inputs = run_mod.prepare(cell, 2**40 + 3)
+            assert seed_dir == root / "benchmark" / "data" / cell.config_name / f"s{2**40 + 3}"
+            argv = [a.format(**inputs) for a in cell.traffic["argv"]]
+            os.chdir(seed_dir)
+            target = argv[-1]
+            ans = krep_ref.answer(argv)
+            if w == TREE_CELL:
+                every = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(target)
+                            for n in ns if not os.path.islink(os.path.join(d, n)))
+                assert 0 < ans.searched_bytes < every
+                assert ans.searched_files == ans.stdout_lines
+            else:
+                assert ans.searched_bytes == os.path.getsize(target) == SMALL["subtitles_en"]["bytes"]
+                assert ans.searched_files == 1
+            os.chdir(here)
+    finally:
+        os.chdir(here)

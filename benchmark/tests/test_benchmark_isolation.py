@@ -19,15 +19,15 @@ sys.path.insert(0, {bench!r})
 import run, tracing
 for p in sorted(Path({bench!r}, "metrics").glob("*.py")):
     run.load_module(p)
-import reference.krep_ref, reference.scan
-import recipes.subtitles_corpus, recipes.mixed_set
+import reference.krep_ref, reference.scan, reference.tree
+import recipes.subtitles_corpus, recipes.mixed_set, recipes.linux_tree
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
 LOAD_REFERENCE = """
 import json, sys
 sys.path.insert(0, {bench!r})
-import reference.krep_ref, reference.scan
+import reference.krep_ref, reference.scan, reference.tree
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
